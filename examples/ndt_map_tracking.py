@@ -2,9 +2,7 @@
 
 The voxel-Gaussian field (`build_ndt_grid`) is built ONCE from a map
 cloud and reused for every incoming scan — the per-scan cost is just the
-Gauss-Newton loop, whose voxel lookups run through the fused direct7
-Pallas kernel on TPU (ops/ndt_pallas.py: the whole neighborhood's
-moments in one band pass; BENCH_NOTES §NDT). This is the intended
+Gauss-Newton loop over the voxel lookups. This is the intended
 deployment shape for localization: amortize the map prepass, stream the
 scans.
 

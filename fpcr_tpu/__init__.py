@@ -1,12 +1,12 @@
-"""fpcr_tpu — TPU-native point-cloud registration (fast-point-cloud-registration_tpu).
+"""fpcr_tpu — point-cloud registration in JAX (fast-point-cloud-registration).
 
 A from-scratch JAX/XLA/Pallas rebuild of the capability surface of
 ``Carlos310197/Fast-Point-Cloud-Registration-with-GPUs`` (CUDA ICP thesis
-code, mounted read-only at /root/reference): point-to-point and
-point-to-plane ICP, brute-force NN matching as a tiled MXU kernel, kNN + PCA
+code): point-to-point and point-to-plane ICP, brute-force NN matching
+(a tiled XLA argmin, and a fused Pallas-Triton kernel on the GPU), kNN + PCA
 normal estimation with an on-device closed-form 3x3 eigensolver, synthetic /
 Stanford-Bunny / Ouster-OS1-16 datasets, a jitted convergence-gated ICP loop,
-and multi-chip scaling via shard_map + ICI psum of moment matrices.
+and multi-device scaling via shard_map + psum of moment matrices.
 
 See SURVEY.md for the structural map of the reference and BASELINE.md for the
 performance contract.

@@ -2,7 +2,7 @@
 
 Clouds are plain ``float32[N, 3]`` row-major jnp arrays everywhere in this
 framework (the reference stores the transpose, interleaved x1 y1 z1 ... —
-/root/reference/src/my_lib.cpp:3). TPU kernels want static shapes, so ragged
+/root/reference/src/my_lib.cpp:3). Compiled XLA programs want static shapes, so ragged
 sizes are handled by padding to a tile multiple plus a validity mask.
 """
 
@@ -21,7 +21,7 @@ def round_up(x: int, multiple: int) -> int:
 def fit_unroll(num_chunks: int, unroll: int) -> int:
     """Largest power-of-two divisor of ``num_chunks`` that is <= ``unroll``
     (>= 1). Every chunked kernel statically unrolls ``u`` chunks per loop
-    step to amortize the ~8 µs XLA loop-step overhead; the unroll must
+    step to amortize the XLA loop-step overhead; the unroll must
     divide the chunk count exactly."""
     if unroll < 1:
         raise ValueError(f"unroll must be >= 1, got {unroll}")
@@ -35,11 +35,10 @@ def fit_unroll(num_chunks: int, unroll: int) -> int:
 
 def padded_chunks(n: int, chunk: int, unroll: int) -> Tuple[int, int]:
     """(num_chunks, u): chunk count for ``n`` rows padded so the static
-    unroll divides it — restoring the full DMA double-buffer pipeline on
-    awkward counts (259,200 pts → 507 chunks, largest pow2 divisor 1 →
-    serialized DMAs; measured on the wide-plane smoke scene). Pads at
-    most ~12.5% extra chunks; past that the waste outweighs the pipeline
-    and the natural count keeps its best divisor."""
+    unroll divides it — keeping the full unroll on awkward counts (259,200
+    pts → 507 chunks, largest pow2 divisor 1 → one chunk per loop step).
+    Pads at most ~12.5% extra chunks; past that the waste outweighs the
+    unroll and the natural count keeps its best divisor."""
     raw = round_up(max(n, 1), chunk) // chunk
     want = 1 << (max(unroll, 1).bit_length() - 1)
     padded = round_up(raw, want)

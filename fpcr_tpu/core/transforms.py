@@ -1,6 +1,6 @@
 """Rigid transforms and rotation conventions.
 
-TPU-native rebuild of the reference's host-side transform handling
+JAX rebuild of the reference's host-side transform handling
 (column-major 3x3 R + 3-vector T, e.g. /root/reference/src/ICP_point_to_point.cu:167-190
 and /root/reference/src/CUDA/ICP_point_to_plane_clean.cu:648-657). Here clouds
 are row-major ``[N, 3]`` jnp arrays and transforms are a small pytree, so the
@@ -40,8 +40,8 @@ class RigidTransform(NamedTuple):
         """Apply to ``[..., 3]`` points (the reference's ``RyT`` kernel,
         /root/reference/src/CUDA/ICP_point_to_point_clean.cu:103-113).
 
-        Uses full-f32 matmul precision — TPU's default bf16 passes would
-        perturb every coordinate by ~1e-3 relative, wrecking the 1e-6
+        Uses full-f32 matmul precision — a reduced-precision (bf16/TF32)
+        matmul would perturb every coordinate by ~1e-3 relative, wrecking the 1e-6
         convergence semantics.
         """
         return (

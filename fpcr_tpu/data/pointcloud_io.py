@@ -5,7 +5,7 @@ The reference ships clouds only as ad-hoc CSVs (semicolon ``Bunny.csv``,
 space-separated ``Bunny_res.csv`` — loader at
 /root/reference/src/CUDA/GPU_point_to_point_bunny.cu:463-497). Real LiDAR /
 scanning pipelines exchange PLY (Stanford) and PCD (Point Cloud Library)
-files, so the TPU rebuild accepts those natively. Pure numpy, no
+files, so this rebuild accepts those natively. Pure numpy, no
 dependencies; points come back as ``float32 [N, 3]`` host arrays ready for
 ``jax.device_put``.
 

@@ -86,11 +86,8 @@ def wide_plane_cloud(
     (defaults: 18 x 120 x 120 = 259,200 points).
 
     Each x-plane of the resulting voxel table holds ~(extent/voxel)² rows,
-    which outgrows any fixed fused-NDT band window — the scene that forces
-    ``models/ndt._resolve_fused``'s window escalation and, past
-    ``_FUSED_WINDOW_CAP``, the per-offset XLA fallback (BENCH_NOTES
-    "Band-coverage policy": measured on this cloud at 259k, policy picks
-    xla, 19.6 ms/iter, matched_fraction 0.895)."""
+    so a voxel's ±x face neighbour sits that many rows away in key order:
+    the scene that stresses the banded NDT lookup's window."""
     rng = np.random.default_rng(seed)
     ys, zs = np.meshgrid(np.linspace(0, extent, grid, dtype=np.float32),
                          np.linspace(0, extent, grid, dtype=np.float32),

@@ -6,7 +6,7 @@ scene takes ~17-28 point-metric iterations). Anderson acceleration
 extrapolates from the last ``m`` iterates to cut the iteration count —
 the AA-ICP formulation of Pavlov et al. (arXiv:1709.05479, PAPERS.md).
 
-TPU-native design: the transform is parametrized as the minimal 6-vector
+Design: the transform is parametrized as the minimal 6-vector
 ``x = [log(R), t]`` (SO(3) log/exp in core/transforms.py); the history of
 ``m`` (iterate, residual) pairs lives in fixed-size buffers carried through
 the ``lax.while_loop``; the mixing coefficients come from a tiny regularized

@@ -5,7 +5,7 @@ to ICP for refinement.
 Beyond-reference pipeline: every reference driver starts ICP from a small
 known displacement (SURVEY.md §0); it has no answer for unknown initial
 pose. This module is the standard feature-based global aligner (the
-Open3D/PCL workflow), redesigned for TPU:
+Open3D/PCL workflow), redesigned for an accelerator:
 
 * FPFH descriptors and feature-space matching reuse the framework's
   streaming matmul machinery — ``ops.matching.nn_argmin`` is
@@ -17,7 +17,7 @@ Open3D/PCL workflow), redesigned for TPU:
   with ``jax.random``, B Kabsch solves via a batched 3x3 SVD, and a
   [B, C] residual matrix scored in one einsum — hypothesis-parallelism is
   exactly what the hardware wants (the classic sequential-RANSAC loop
-  would be latency-bound on TPU);
+  would be latency-bound on an accelerator);
 * everything static-shape, one jit end to end.
 
 Caveat: global registration answers "which pose overlays the clouds", so

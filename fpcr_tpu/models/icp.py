@@ -1,6 +1,6 @@
 """The ICP registration loop — jit-compiled, device-resident, convergence-gated.
 
-This is the TPU-native replacement for the reference's host-driven ``while``
+This is the on-device replacement for the reference's host-driven ``while``
 loop (/root/reference/src/CUDA/ICP_point_to_point_clean.cu:324-461 for
 point-to-point; /root/reference/src/CUDA/ICP_point_to_plane_clean.cu:579-695
 for point-to-plane). The reference launches each kernel from the host,
@@ -81,7 +81,7 @@ class ICPConfig:
     target_tile: int = 2048
     matcher: str = "xla"  # 'xla' | 'pallas' | 'grid' | 'morton'
     exact_distances: bool = False
-    # voxel-grid matcher (exact fixed-radius search; gather-bound on TPU —
+    # voxel-grid matcher (exact fixed-radius search; random-gather bound —
     # prefer 'morton' for speed at scale; see ops/grid.py)
     grid_cell_size: Optional[float] = None  # None = auto from target spacing
     grid_cap: int = 8
@@ -90,27 +90,16 @@ class ICPConfig:
     morton_chunk: int = 256
     morton_window: int = 256
     morton_unroll: int = 16
-    morton_impl: str = "auto"  # 'auto' (pallas on TPU) | 'xla' | 'pallas'
-    # Pallas kernel precision for BOTH the brute and the Morton band
-    # matchers: 'packed6' (K-packed bf16x6 — one MXU pass, f32-grade, the
-    # fast default; the band kernel runs it software-pipelined with a
-    # VMEM-budgeted auto stage depth) | 'highest' (bit-exact f32 dot; ~6
-    # passes) | 'packed6_idx' (packed value|index single-word reduction —
-    # the brute kernel's measured floor; near-tie index swaps within
-    # ~2e-3 relative sqdist) | 'packed6_seq'/'packed6_pipe'/'_pipe2'/
-    # '_pipe3' (band-kernel schedule pins for A/B — identical math; the
-    # brute matcher treats all of these as 'packed6')
-    pallas_mode: str = "packed6"
     # 2 = also query a half-cell-shifted second curve and keep the closer
     # match (covers Morton seam misses; ~2x matching cost)
     morton_shifts: int = 1
     # exact-rescue escalation for seam-heavy geometry: per iteration, the
     # `morton_rescue` source rows with the LARGEST banded match distance
-    # are re-matched exactly against the full target (streaming MXU argmin,
+    # are re-matched exactly against the full target (streaming XLA argmin,
     # cost ~ rescue/N of a brute match). 0 = off. Size it with
     # ``tune_morton`` (probe-driven) instead of guessing: on the
     # adversarial crossing-walls cloud, dual-shift + rescue of ~1.5x the
-    # probed miss count removes ALL damaging misses (BENCH_NOTES r3).
+    # probed miss count removes ALL damaging misses.
     morton_rescue: int = 0
 
     def __post_init__(self):
@@ -122,10 +111,6 @@ class ICPConfig:
             raise ValueError(f"unknown matcher {self.matcher!r}")
         if self.robust_loss not in (None, "huber", "tukey"):
             raise ValueError(f"unknown robust_loss {self.robust_loss!r}")
-        if self.pallas_mode not in ("packed6", "highest", "packed6_idx",
-                                    "packed6_pipe", "packed6_seq",
-                                    "packed6_pipe2", "packed6_pipe3"):
-            raise ValueError(f"unknown pallas_mode {self.pallas_mode!r}")
         if self.morton_rescue < 0:
             raise ValueError("morton_rescue must be >= 0")
         if not (0.0 < self.gicp_epsilon <= 1.0):
@@ -184,12 +169,7 @@ def _match(points, target, target_mask, config: ICPConfig, matcher_state=None):
     if config.matcher == "pallas":
         from ..ops.matching_pallas import nn_argmin_pallas
 
-        # pipe/seq are band-kernel-only schedules (the brute kernel's
-        # grid already pipelines source×target tiles) — same math
-        mode = ("packed6" if config.pallas_mode.startswith(("packed6_pipe",
-                                                             "packed6_seq"))
-                else config.pallas_mode)
-        idx, d = nn_argmin_pallas(points, target, target_mask, mode=mode)
+        idx, d = nn_argmin_pallas(points, target, target_mask)
         return idx, d, None
     if config.matcher == "grid":
         from ..ops.grid import grid_nn
@@ -211,13 +191,13 @@ def _match(points, target, target_mask, config: ICPConfig, matcher_state=None):
 
 
 def resolve_matcher(config: ICPConfig, n_source: int) -> ICPConfig:
-    """Degrade ``matcher='grid'`` to ``'morton'`` above the safe gather
-    budget instead of erroring at trace time.
+    """Degrade ``matcher='grid'`` to ``'morton'`` above the gather budget
+    instead of erroring at trace time.
 
     The voxel-hash query gathers ``N x 27 x cap`` candidate rows; past
-    ``ops.grid.MAX_CANDIDATE_GATHERS`` that gather pressure is measured to
-    crash the TPU worker (BENCH_NOTES round 1), so ``grid_nn`` refuses to
-    trace it. Rather than surface that ValueError from deep inside a jit,
+    ``ops.grid.MAX_CANDIDATE_GATHERS`` rows (~1.4 GB of gathered points per
+    iteration) ``grid_nn`` refuses to trace it. Rather than surface that
+    ValueError from deep inside a jit,
     the driver switches to the Morton banded matcher — the production
     large-N path with the same near-registered validity regime as a
     well-sized grid — and warns once at trace time. Callers who know their
@@ -226,18 +206,18 @@ def resolve_matcher(config: ICPConfig, n_source: int) -> ICPConfig:
     """
     if config.matcher != "grid":
         return config
-    from ..ops.grid import MAX_CANDIDATE_GATHERS
+    from ..ops.grid import CANDIDATE_ROW_BYTES, MAX_CANDIDATE_GATHERS
 
     budget = n_source * 27 * config.grid_cap
     if budget <= MAX_CANDIDATE_GATHERS:
         return config
     warnings.warn(
-        f"matcher='grid' candidate-gather budget {budget:,} "
-        f"(N={n_source:,} x 27 x cap={config.grid_cap}) exceeds the safe "
-        f"limit {MAX_CANDIDATE_GATHERS:,} (gather pressure beyond it "
-        "crashes the TPU worker); falling back to matcher='morton', the "
-        "production large-N path. Lower grid_cap or shard the source to "
-        "stay on the grid matcher.",
+        f"matcher='grid' candidate-gather budget {budget:,} rows "
+        f"(N={n_source:,} x 27 x cap={config.grid_cap}, "
+        f"{budget * CANDIDATE_ROW_BYTES / 1e9:.1f} GB of gathered points per "
+        f"iteration) exceeds the limit {MAX_CANDIDATE_GATHERS:,}; falling "
+        "back to matcher='morton', the production large-N path. Lower "
+        "grid_cap or shard the source to stay on the grid matcher.",
         stacklevel=2,
     )
     return dataclasses.replace(config, matcher="morton")
@@ -279,8 +259,7 @@ def _exact_rescue(points, target, target_mask, target_normals,
     intersection sits on the curve's top-bit boundary) have unbounded
     banded distance, so the damaging rows separate cleanly by dmin —
     measured on the crossing-walls cloud: dual-shift + rescue 1.5x the
-    probed miss count leaves ZERO misses with excess > 1e-4 (BENCH_NOTES
-    r3). Static shapes throughout: one top_k, K-row streaming argmin,
+    probed miss count leaves ZERO misses with excess > 1e-4. Static shapes throughout: one top_k, K-row streaming argmin,
     K-row scatter."""
     k = min(config.morton_rescue, points.shape[0])
     if k <= 0:
@@ -317,23 +296,11 @@ def _correspondences(points, target, target_mask, target_normals,
     dense target bands — no index gathers anywhere in the loop body.
     """
     if config.matcher == "morton":
-        impl = config.morton_impl
-        if impl == "auto":
-            impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-        if impl == "pallas":
-            import functools as _ft
-
-            from ..ops.morton_pallas import morton_nn_pallas
-
-            # pallas_mode maps 1:1 — the band kernel gained its own
-            # packed (value|index) reduction in round 5
-            nn_fn = _ft.partial(morton_nn_pallas, mode=config.pallas_mode)
-        else:
-            from ..ops.morton import morton_nn as nn_fn
+        from ..ops.morton import morton_nn
 
         q_m = n_m = dmin = None
         for table, normals_sorted in matcher_state:
-            q_c, d_c, _, n_c = nn_fn(
+            q_c, d_c, _, n_c = morton_nn(
                 points, table, normals_sorted,
                 chunk=config.morton_chunk, window=config.morton_window,
                 unroll=config.morton_unroll,
@@ -619,7 +586,7 @@ def _run_icp(
         )
         # full-f32 rotation of the carried normals: default bf16 passes
         # drift ||n|| by ~5e-3/iter, which makes the GICP covariances
-        # indefinite and NaNs the 6x6 Cholesky (TPU-only failure)
+        # indefinite and NaNs the 6x6 Cholesky
         new_normals = (jnp.matmul(state.source_normals, inc.rotation.T,
                                   precision=jax.lax.Precision.HIGHEST)
                        if carries_src_normals else state.source_normals)
@@ -718,7 +685,7 @@ def tune_morton(
     3. ``morton_rescue=K`` exact re-match of the K worst rows per
        iteration, K sized to cover every probed miss by its banded
        distance (damaging misses have unbounded distance, so they
-       separate cleanly — BENCH_NOTES r3 'Morton window quality probe').
+       separate cleanly).
 
     Use before ``run_icp`` on seam-heavy geometry (thin crossing
     structures, wide displacement); the adversarial crossing-walls cloud

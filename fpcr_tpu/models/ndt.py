@@ -56,30 +56,14 @@ class NDTConfig:
     damping: float = 1e-6         # Levenberg diagonal added to H
     step_scale: float = 1.0       # fixed step length on δ (1 = full GN)
     neighborhood: str = "direct7"  # 'direct1' (own voxel) | 'direct7' (+6 faces)
-    # voxel-row fetch strategy: 'gather' (searchsorted + row gather — exact,
-    # but the loop's one random-gather op: 82 ms/iter at 262k, BENCH_NOTES
-    # §NDT r2), 'banded' (Morton-band pattern: contiguous table reads +
-    # one-hot MXU extraction; needs the source sorted by voxel key — the
-    # entry points handle that), 'auto' = banded at >= lookup_threshold pts
+    # voxel-row fetch strategy: 'gather' (searchsorted + row gather —
+    # exact), 'banded' (Morton-band pattern: contiguous table reads +
+    # one-hot extraction; needs the source sorted by voxel key — the entry
+    # points handle that), 'auto' = banded at >= lookup_threshold pts
     lookup: str = "auto"
     lookup_threshold: int = 65536
     lookup_chunk: int = 512       # source rows per band read
-    # table rows each side of the probe rank. None = auto: the fused
-    # path sizes it from the concrete key table (coverage requirement,
-    # floor 256 / cap 3968 — see _resolve_fused), shrinking the band
-    # where the geometry allows and escalating where it demands; the
-    # XLA per-offset path resolves None to 512. An explicit int is
-    # respected (escalated only when coverage requires more).
-    lookup_window: Optional[int] = None
-    # banded implementation: 'pallas' (the fused direct7 kernel — one
-    # band pass computes the whole neighborhood's GN moments, see
-    # ops/ndt_pallas.py) | 'xla' (per-offset dynamic_slice bands) |
-    # 'auto' (pick the measured-faster path per backend)
-    lookup_impl: str = "auto"
-    # set by resolve_ndt_config: every auto policy above is already pinned
-    # for a (grid, scan) pair — run_ndt skips the per-call host-side
-    # coverage probe (the streaming map-tracking fast path)
-    lookup_resolved: bool = False
+    lookup_window: int = 512      # table rows each side of the probe rank
 
     def __post_init__(self):
         if self.voxel_size is not None and self.voxel_size <= 0:
@@ -90,19 +74,10 @@ class NDTConfig:
             raise ValueError(f"unknown neighborhood {self.neighborhood!r}")
         if self.lookup not in ("auto", "gather", "banded"):
             raise ValueError(f"unknown lookup {self.lookup!r}")
-        if self.lookup_impl not in ("auto", "xla", "pallas"):
-            raise ValueError(f"unknown lookup_impl {self.lookup_impl!r}")
         if self.lookup_chunk <= 0:
             raise ValueError("lookup_chunk must be positive")
-        if self.lookup_chunk % 128:
-            # the fused Pallas path tiles [band, u·chunk] blocks whose lane
-            # dimension must be 128-aligned; fail here with a clear message
-            # instead of deep inside Mosaic
-            raise ValueError("lookup_chunk must be a multiple of 128 "
-                             f"(got {self.lookup_chunk})")
-        if self.lookup_window is not None and self.lookup_window <= 0:
-            raise ValueError("lookup_window must be positive (or None "
-                             "for the auto-sized coverage window)")
+        if self.lookup_window <= 0:
+            raise ValueError("lookup_window must be positive")
 
 
 def resolve_voxel_size(config: NDTConfig, target: jnp.ndarray) -> NDTConfig:
@@ -133,171 +108,35 @@ def _resolve_lookup(config: NDTConfig, n: int) -> NDTConfig:
     return dataclasses.replace(config, lookup=mode)
 
 
-_FUSED_WINDOW_CAP = 3968  # band <= ~8.2k rows: ~4.5 MB VMEM buffers
-
-
 def resolve_ndt_config(config: NDTConfig, grid,
                        source: jnp.ndarray) -> NDTConfig:
-    """Pin every auto policy (lookup strategy, fused-band window, impl)
-    once for a (grid, representative scan) pair and mark the config
-    resolved, so streaming callers skip the per-call host-side coverage
-    probe in ``run_ndt``.
+    """Pin ``lookup='auto'`` once for a (map grid, representative scan)
+    pair, so every scan of a stream runs the same compiled loop even when
+    scan sizes straddle ``lookup_threshold``.
 
     The map-tracking pattern::
 
         grid = build_ndt_grid(map_cloud, 0.2)
         cfg = resolve_ndt_config(NDTConfig(voxel_size=0.2), grid, scan0)
         for scan in stream:
-            run_ndt(scan, map_cloud, cfg, grid=grid)   # no host probe
-
-    Without this, ``run_ndt`` re-runs the coverage computation every call
-    (a device sync + an O(n log n) host sort) and an auto window that
-    flips across a 128 boundary between scans recompiles the loop.
+            run_ndt(scan, map_cloud, cfg, grid=grid)
     """
-    config = _resolve_lookup(config, int(source.shape[0]))
-    config = _resolve_fused(config, grid, source)
-    return dataclasses.replace(config, lookup_resolved=True)
-
-
-def _resolve_fused(config: NDTConfig, grid,
-                   source: Optional[jnp.ndarray] = None) -> NDTConfig:
-    """Pin ``lookup_impl='auto'`` for THIS grid (host-side, one-time).
-
-    The fused kernel reads ONE band per chunk (centered on the chunk's
-    probe rank), so a query's ±x face neighbor — ~one x-plane of table
-    rows away — must sit within the band or it silently reads as a miss
-    (ops/ndt_pallas.py "banded miss semantics"). Both quantities are
-    computable from the concrete tables: the neighbor rank distance
-    ``D`` exactly, as max |insrank(cell(v) − o) − rank(v)| over present
-    voxels and face offsets (universal over query cells — see the inline
-    derivation), and the per-chunk query rank spread ``S`` from the
-    initial source's sorted keys. One-sided band reach is chunk/2 + window, the worst
-    query sits ``S`` below the probe, so coverage needs
-    ``window >= D + S_slack − chunk/2`` (``S_slack = 2·S + 128`` —
-    iterations move points by at most a few voxels). Policy: escalate
-    the window to cover it (rounded to 128); past ``_FUSED_WINDOW_CAP``
-    fall back to the per-offset XLA banded path, whose per-offset
-    probes re-center every band and have no such bound.
-    """
-    if config.lookup_resolved:
-        if (config.lookup == "banded"
-                and (config.lookup_impl == "auto"
-                     or config.lookup_window is None)):
-            raise ValueError(
-                "lookup_resolved=True needs concrete lookup_impl and "
-                "lookup_window — obtain the config from resolve_ndt_config "
-                "instead of setting the flag directly")
-        return config
-    if config.lookup != "banded" or config.lookup_impl == "xla":
-        return dataclasses.replace(
-            config,
-            lookup_impl=("xla" if config.lookup_impl == "auto"
-                         else config.lookup_impl),
-            lookup_window=(512 if config.lookup_window is None
-                           else config.lookup_window))
-    if isinstance(grid.keys, jax.core.Tracer):
-        # under an outer jit the key table is abstract — the coverage
-        # computation needs concrete values. Keep the documented fixed-
-        # window behavior; call run_ndt un-jitted (it jits internally)
-        # to get the measured policy.
-        return dataclasses.replace(
-            config,
-            lookup_impl=(("pallas" if jax.default_backend() == "tpu"
-                          else "xla") if config.lookup_impl == "auto"
-                         else config.lookup_impl),
-            lookup_window=(512 if config.lookup_window is None
-                           else config.lookup_window))
-    import numpy as np
-
-    from ..ops.ndt import _AXIS_BITS, _KEY_PAD, _cells_raw, _pack
-
-    keys = np.asarray(grid.keys)
-    keys = keys[keys != _KEY_PAD]
-    # Exact coverage requirement (round 4; was the adjacent-x-plane row-
-    # count bound, ~2× looser on the bench scenes → one band K-tile tier
-    # wasted): for EVERY possible query cell k with a present face
-    # neighbor v = k + o, the band centered near insrank(k) must reach
-    # rank(v). Enumerating k as cell(v) − o over the present voxels v
-    # covers all such queries — including absent-cell queries and any
-    # iteration drift (a drifted query is just another cell k) — so
-    # d_max = max |insrank(cell(v) − o) − rank(v)| is both exact and
-    # universal. Six vectorized searchsorteds over the ≤K voxel keys.
-    d_max = 0
-    if keys.size:
-        ranks = np.arange(keys.size)
-        hi = (1 << _AXIS_BITS) - 1
-        cxyz = np.stack([(keys >> (2 * _AXIS_BITS)) & hi,
-                         (keys >> _AXIS_BITS) & hi, keys & hi], axis=1)
-        for off in ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0),
-                    (0, 0, 1), (0, 0, -1)):
-            q = cxyz - np.asarray(off)
-            ok = ((q >= 0) & (q <= hi)).all(axis=1)
-            if not ok.any():
-                continue
-            qk = ((q[ok, 0] << (2 * _AXIS_BITS))
-                  | (q[ok, 1] << _AXIS_BITS) | q[ok, 2])
-            ins = np.searchsorted(keys, qk)
-            d_max = max(d_max, int(np.abs(ins - ranks[ok]).max()))
-    spread = 0
-    if source is not None and source.shape[0] > 0:
-        c = np.asarray(_cells_raw(source.astype(jnp.float32), grid.lo,
-                                  grid.voxel_size))
-        sk = np.sort(np.asarray(
-            _pack(jnp.asarray(np.clip(c, 0, (1 << _AXIS_BITS) - 1)))))
-        ranks = np.searchsorted(keys, sk)
-        ch = config.lookup_chunk
-        n_full = (ranks.shape[0] // ch) * ch
-        if n_full:
-            r2 = ranks[:n_full].reshape(-1, ch)
-            spread = int((r2[:, -1] - r2[:, 0]).max())
-        if ranks.shape[0] > n_full:
-            spread = max(spread, int(ranks[-1] - ranks[n_full]))
-    needed = max(d_max + 2 * spread + 128 - config.lookup_chunk // 2, 0)
-    auto_w = config.lookup_window is None
-    window = 512 if auto_w else config.lookup_window
-    if auto_w and needed <= _FUSED_WINDOW_CAP:
-        # auto window: size the band to the measured requirement — shrink
-        # where the geometry allows (less kernel work), escalate where it
-        # demands (coverage)
-        impl = "pallas"
-        window = min(max(-(-needed // 128) * 128, 256), _FUSED_WINDOW_CAP)
-    elif needed <= window:
-        impl = "pallas"
-    elif needed <= _FUSED_WINDOW_CAP:
-        impl = "pallas"
-        window = -(-needed // 128) * 128
-    elif config.lookup_impl == "pallas":
-        # explicit pallas: best effort at the cap (the documented banded
-        # miss semantics apply to whatever the cap cannot cover)
-        impl = "pallas"
-        window = _FUSED_WINDOW_CAP
-    else:
-        impl = "xla"
-    if config.lookup_impl == "auto" and jax.default_backend() != "tpu":
-        impl = "xla"
-    return dataclasses.replace(config, lookup_impl=impl,
-                               lookup_window=window)
+    del grid  # the lookup choice depends on the scan size only
+    return _resolve_lookup(config, int(source.shape[0]))
 
 
 def _assemble_Hg(w, s, sr, y):
     """Component-form GN assembly on [N] lanes: Σ over points of the
     6×6 H blocks and gradient for J = [I | −[y]×] (see the derivation in
     ``_ndt_loop``). ``s`` = (s00, s01, s02, s11, s12, s22) and ``sr`` =
-    S·r per point; ``w=None`` means the components are ALREADY
-    weight-aggregated over the neighborhood (the fused-kernel path —
-    ops/ndt_pallas.py returns Σ_b w S_b and Σ_b w S_b r_b directly).
+    S·r per point, each weighted by ``w``.
 
-    The component form is pure VPU elementwise + fused reductions
-    (~0.3 ms/offset at 262k); batched-3×3 einsums pad each tiny matmul to
-    MXU tiles and measured ~4.5 ms/offset — 2× the lookup itself.
+    The component form is elementwise work plus fused reductions; batched
+    3×3 einsums would turn each into a tiny matrix product.
     """
-    s00, s01, s02, s11, s12, s22 = s
-    sr0, sr1, sr2 = sr
+    s00, s01, s02, s11, s12, s22 = (w * c for c in s)
+    sr0, sr1, sr2 = (w * c for c in sr)
     y0, y1, y2 = y
-    if w is not None:
-        s00, s01, s02 = w * s00, w * s01, w * s02
-        s11, s12, s22 = w * s11, w * s12, w * s22
-        sr0, sr1, sr2 = w * sr0, w * sr1, w * sr2
 
     # Jᵀ S r: t-block = S r, θ-block = (−K)ᵀ S r = y × (S r)
     g_t = jnp.stack([jnp.sum(sr0), jnp.sum(sr1), jnp.sum(sr2)])
@@ -376,43 +215,22 @@ def _ndt_loop(source, grid: NDTGrid, config: NDTConfig,
     else:
         offsets = [None]
 
-    impl = config.lookup_impl
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    # direct _ndt_loop callers may bypass _resolve_fused; default the
-    # auto window locally
-    win = 512 if config.lookup_window is None else config.lookup_window
-    fused = config.lookup == "banded" and impl == "pallas"
-    if fused:
-        from ..ops.ndt_pallas import ndt_fused_moments, prepare_fused_tables
-
-        # operand prep (cell pack + transposed feature table) runs ONCE
-        # per registration, outside the while_loop
-        tables = prepare_fused_tables(grid)
-
-        def fused_moments(x):
-            return ndt_fused_moments(
-                x, grid, tables, voxel_size=float(config.voxel_size),
-                d1=d1f, d2=d2f, neighborhood=config.neighborhood,
-                chunk=config.lookup_chunk, window=win,
-                source_mask=source_mask)
-    elif config.lookup == "banded":
+    if config.lookup == "banded":
         from ..ops.ndt import ndt_lookup_banded
 
         def lookup_fn(x, g, off):
             return ndt_lookup_banded(x, g, cell_offset=off,
                                      chunk=config.lookup_chunk,
-                                     window=win)
+                                     window=config.lookup_window)
     else:  # 'gather' ('auto' is resolved to a concrete choice upstream)
         def lookup_fn(x, g, off):
             return ndt_lookup(x, g, cell_offset=off)
 
     def body(state):
         R, t, it, err_hist, delta_norm, frac = state
-        # HIGHEST is mandatory: TPU's default bf16 matmul perturbs the
-        # transformed coordinates ~1e-3 relative, which caps the NDT pose
-        # at ~1e-2 error (hardware-measured — same failure mode as the
-        # GICP normals rotation, see BENCH_NOTES)
+        # HIGHEST is mandatory: a reduced-precision (bf16/TF32) matmul
+        # perturbs the transformed coordinates ~1e-3 relative, which caps
+        # the NDT pose at ~1e-2 error
         x = jnp.einsum("ni,ji->nj", source, R, precision=prec) + t
         # Linearize the GN step about the source centroid, not the origin:
         # with absolute coordinates the rotation block of H scales as |x|²
@@ -426,55 +244,39 @@ def _ndt_loop(source, grid: NDTGrid, config: NDTConfig,
         y = x - c
         y_comp = (y[:, 0], y[:, 1], y[:, 2])
 
-        if fused:
-            # The whole direct7 field in ONE kernel pass: per-query
-            # weighted moments WS = Σ_b w S_b and WSμ′ = Σ_b w S_b μ′_b
-            # over the neighborhood, plus Σq / count lanes. The GN pieces
-            # follow exactly: Σ_b w S_b r_b = WS·x′ − WSμ′ (shared anchor).
-            rows, xp = fused_moments(x)
-            s = (rows[:, 0], rows[:, 1], rows[:, 2],
-                 rows[:, 3], rows[:, 4], rows[:, 5])
-            xp0, xp1, xp2 = xp[:, 0], xp[:, 1], xp[:, 2]
-            sr = (s[0] * xp0 + s[1] * xp1 + s[2] * xp2 - rows[:, 6],
-                  s[1] * xp0 + s[3] * xp1 + s[4] * xp2 - rows[:, 7],
-                  s[2] * xp0 + s[4] * xp1 + s[5] * xp2 - rows[:, 8])
-            H, g = _assemble_Hg(None, s, sr, y_comp)
-            err_num = jnp.sum(rows[:, 11])
-            err_den = jnp.sum(rows[:, 10])
-            any_hit = rows[:, 10] > 0.0
-        else:
-            H = jnp.zeros((6, 6), jnp.float32)
-            g = jnp.zeros((6,), jnp.float32)
-            err_num = jnp.float32(0.0)
-            err_den = jnp.float32(0.0)
-            any_hit = jnp.zeros((x.shape[0],), bool)
-            # DIRECT7-style multi-voxel field: every occupied voxel in the
-            # face neighborhood contributes its Gaussian (static unrolled
-            # loop — no dynamic shapes, just K× the lookup + assembly).
-            for off in offsets:
-                mu, sinv, hit = lookup_fn(x, grid, off)
-                if source_mask is not None:
-                    hit = hit & source_mask
-                r = x - mu
-                r0, r1, r2 = r[:, 0], r[:, 1], r[:, 2]
-                s = (sinv[:, 0, 0], sinv[:, 0, 1], sinv[:, 0, 2],
-                     sinv[:, 1, 1], sinv[:, 1, 2], sinv[:, 2, 2])
-                # S r
-                sr = (s[0] * r0 + s[1] * r1 + s[2] * r2,
-                      s[1] * r0 + s[3] * r1 + s[4] * r2,
-                      s[2] * r0 + s[4] * r1 + s[5] * r2)
-                q = r0 * sr[0] + r1 * sr[1] + r2 * sr[2]  # Mahalanobis²
-                w = d1 * d2 * jnp.exp(jnp.clip(-0.5 * d2 * q, -60.0, 0.0))
-                w = jnp.where(hit, w, 0.0)
-                any_hit = any_hit | hit
-                Hc, gc = _assemble_Hg(w, s, sr, y_comp)
-                H = H + Hc
-                g = g + gc
-                err_num = err_num + jnp.sum(jnp.where(hit, q, 0.0))
-                err_den = err_den + jnp.sum(hit.astype(jnp.float32))
+        H = jnp.zeros((6, 6), jnp.float32)
+        g = jnp.zeros((6,), jnp.float32)
+        err_num = jnp.float32(0.0)
+        err_den = jnp.float32(0.0)
+        any_hit = jnp.zeros((x.shape[0],), bool)
+        # DIRECT7-style multi-voxel field: every occupied voxel in the
+        # face neighborhood contributes its Gaussian (static unrolled
+        # loop — no dynamic shapes, just K× the lookup + assembly).
+        for off in offsets:
+            mu, sinv, hit = lookup_fn(x, grid, off)
+            if source_mask is not None:
+                hit = hit & source_mask
+            r = x - mu
+            r0, r1, r2 = r[:, 0], r[:, 1], r[:, 2]
+            s = (sinv[:, 0, 0], sinv[:, 0, 1], sinv[:, 0, 2],
+                 sinv[:, 1, 1], sinv[:, 1, 2], sinv[:, 2, 2])
+            # S r
+            sr = (s[0] * r0 + s[1] * r1 + s[2] * r2,
+                  s[1] * r0 + s[3] * r1 + s[4] * r2,
+                  s[2] * r0 + s[4] * r1 + s[5] * r2)
+            q = r0 * sr[0] + r1 * sr[1] + r2 * sr[2]  # Mahalanobis²
+            w = d1 * d2 * jnp.exp(jnp.clip(-0.5 * d2 * q, -60.0, 0.0))
+            w = jnp.where(hit, w, 0.0)
+            any_hit = any_hit | hit
+            Hc, gc = _assemble_Hg(w, s, sr, y_comp)
+            H = H + Hc
+            g = g + gc
+            err_num = err_num + jnp.sum(jnp.where(hit, q, 0.0))
+            err_den = err_den + jnp.sum(hit.astype(jnp.float32))
 
         # the 6x6 H / 6-vector g / scalar counters are the ONLY per-
-        # iteration ICI traffic (same pattern as dist ICP's moments)
+        # iteration traffic between devices (same pattern as dist ICP's
+        # moments)
         H = _psum(H)
         g = _psum(g)
         err_num = _psum(err_num)
@@ -584,7 +386,6 @@ def run_ndt(
                               min_points=config.min_points,
                               eig_ratio=config.eig_ratio)
     config = _resolve_lookup(config, src.shape[0])
-    config = _resolve_fused(config, grid, src)
     src_run = src
     if config.lookup == "banded":
         # band reads need voxel-key-coherent rows; the solve is
@@ -622,7 +423,7 @@ def register_ndt(
     Clouds larger than ``ndt_points`` are strided down for the NDT init
     stages only (the pose is what NDT produces — voxel Gaussians don't
     need full density, and the per-point voxel lookup is the one
-    gather-bound step in the framework; BENCH_NOTES §NDT). The ICP
+    random-gather step in the framework). The ICP
     refinement always sees the full clouds.
     """
     import dataclasses as _dc

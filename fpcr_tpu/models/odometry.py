@@ -3,7 +3,7 @@ device program.
 
 Beyond-reference workflow (the reference registers exactly one pair per
 executable): given T frames of a moving sensor, estimate every frame's
-pose in frame-0 coordinates. TPU-first structure:
+pose in frame-0 coordinates. Structure:
 
 * the T-1 consecutive-pair registrations are INDEPENDENT, so they run as
   one vmapped program (``models/batch.py``) — not a Python loop of T-1

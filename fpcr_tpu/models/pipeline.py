@@ -2,11 +2,11 @@
 
 The reference registers ≤36k-point clouds with brute-force matching every
 iteration. At 1M+ points that is 10¹² distance pairs per iteration; the
-production-scale path here is the standard two-stage pipeline, TPU-first:
+production-scale path here is the standard two-stage pipeline, on device:
 
 1. **Coarse**: subsample both clouds (strided — cheap and deterministic),
-   run brute-force ICP on the subsets (a few thousand points — microseconds
-   per iteration on the MXU path). This absorbs the large initial
+   run brute-force ICP on the subsets (a few thousand points — cheap per
+   iteration on the brute path). This absorbs the large initial
    displacement that a fixed-radius matcher cannot see.
 2. **Fine**: apply the coarse transform, then run ICP with the Morton
    windowed matcher (O(N·band) dense work, zero gathers — ops/morton.py) on

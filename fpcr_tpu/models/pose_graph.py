@@ -16,15 +16,14 @@ by Gauss-Newton with right-multiplicative updates ``X ← X·exp(δ)``:
 with ``A = X_i⁻¹X_j`` and ``r = log(Z⁻¹A)``, first order gives
 ``J_j = Jr⁻¹(r) ≈ I + ½·ad(r)`` and ``J_i = −J_j·Ad(A⁻¹)``.
 
-TPU-first structure:
+Structure:
 
 * all E edge residuals/Jacobians are built **batched** (vmapped SE(3)
   log/adjoint — closed forms, no host loops);
 * the 6T×6T normal matrix is assembled **dense** with four scatter-adds
   of [E,6,6] blocks — for trajectory-scale T (tens to a few thousand
-  frames) a dense on-device Cholesky beats any sparse structure TPUs
-  can't exploit (6T = 6,000 → one 36 MB factorization, microseconds of
-  MXU time);
+  frames) a dense on-device Cholesky beats any sparse structure
+  the device can't vectorize (6T = 6,000 → one 36 MB factorization);
 * gauge freedom is fixed by a strong prior on pose 0, not by matrix
   surgery — shapes stay static;
 * the whole GN iteration loop is one ``lax.fori_loop`` under jit.

@@ -4,7 +4,7 @@ Plays the role of the reference's CPU programs: the double-precision serial
 baseline (/root/reference/src/ICP_CPU.c — MAX_ITER 200, epsilon 1e-5, f64)
 and the float MKL mirror (/root/reference/src/CUDA/CPU_ICP_point_to_point.cpp)
 that were used to validate the GPU math (SURVEY.md §4 'algorithmic
-cross-checks'). Tests compare the TPU pipeline against this implementation;
+cross-checks'). Tests compare the JAX pipeline against this implementation;
 it is deliberately simple, sequential, and dependency-free.
 """
 

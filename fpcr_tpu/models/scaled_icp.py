@@ -5,7 +5,7 @@ Beyond-reference model family: the reference solves rigid-only Kabsch
 (/root/reference/src/CUDA/ICP_point_to_point_clean.cu:386-429). Scaled
 registration matters when clouds come from sensors with unknown metric
 calibration (e.g. monocular-SfM reconstructions vs LiDAR scans). Same
-TPU-first loop design as ``models/icp.py``: matching + masked psum-able
+Same loop design as ``models/icp.py``: matching + masked psum-able
 moments + on-device 3x3 SVD inside one convergence-gated
 ``lax.while_loop`` — zero host round trips.
 

@@ -8,7 +8,7 @@ iterate. Matching cost per step drops from O(N·M) to O(B·M), which is the
 interesting regime when N is large and many cheap steps beat few exact
 ones (the paper reports parity-quality poses at a fraction of the work).
 
-TPU-native design decisions (where this deliberately departs from the
+Design decisions (where this deliberately departs from the
 paper's CPU/Euler formulation):
 
 * the pose lives on **se(3)** — the step perturbs the current estimate by

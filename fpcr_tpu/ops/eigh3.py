@@ -6,7 +6,7 @@ The reference *started* exactly this approach in its ``Normals`` CUDA kernel
 the eigenvector path (dead code, constant (1,1,1)/sqrt(3) output, :149-181)
 and fell back to a *host* loop of LAPACKE_ssyev calls with a D2H/H2D round
 trip of all 9N covariance entries (:487-497). That host loop is the
-anti-pattern a TPU can least afford; here the whole thing is a vectorized
+anti-pattern an accelerator can least afford; here the whole thing is a vectorized
 jnp computation over ``[..., 3, 3]`` batches: trigonometric eigenvalues
 (Smith's algorithm) + cross-product eigenvectors, all VPU element-wise ops —
 no LAPACK, no host, vmap/shard_map friendly.

@@ -7,13 +7,13 @@ alignment at all — every driver initializes ICP from a known-small
 displacement (SURVEY.md §0). FPFH + the RANSAC aligner in
 ``models/global_reg.py`` remove that requirement.
 
-TPU-first design:
+Design:
 
 * neighbor pairs come from the existing streaming kNN (``ops/normals.knn``
   — O(chunk x tile) memory, never O(N²)); the per-pair Darboux angle
   features (alpha, phi, theta) are one batched [N, k] VPU computation;
 * histogram binning is a ONE-HOT ENCODE + SUM over the neighbor axis —
-  dense [N, k, bins] arithmetic instead of scatter-adds (TPU's weak spot);
+  dense [N, k, bins] arithmetic instead of scatter-adds;
 * the SPFH -> FPFH neighbor mixing (weighted by 1/distance) is a gather +
   weighted sum, one-time prepass cost like the normals prepass.
 

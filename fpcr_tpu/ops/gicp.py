@@ -13,7 +13,7 @@ pieces (kNN + PCA normals, masked psum-able moment reductions, on-device
 6x6 Cholesky — see fpcr_tpu/ops/solve.py and the reference's Cxb analog at
 /root/reference/src/CUDA/ICP_point_to_plane_clean.cu:240-283).
 
-TPU-first design notes:
+Design notes:
 
 * With the canonical GICP regularization (surface eigenvalues -> (eps,1,1))
   a point's covariance is fully determined by its normal:
@@ -22,9 +22,8 @@ TPU-first design notes:
 * The per-point metric ``M_i = (C_p_i + C_q_i)^{-1}`` is NEVER materialized:
   Woodbury gives the closed form ``M = I/2 + G E G^T`` (G = [n_p n_q], E a
   2x2 from n_p·n_q), so the whole 6x6 assembly is [N,3] cross products plus
-  [3,N]x[N,3] MXU matmul reductions — zero [N,3,3] intermediates in HBM
-  (the dense einsum-block version measured 31 ms/iter at 1M points, this
-  one ~3x less; ``inv3x3_sym`` remains as the general-covariance reference
+  [3,N]x[N,3] matmul reductions — zero [N,3,3] intermediates in device
+  memory (``inv3x3_sym`` remains as the general-covariance reference
   path, cross-checked by the tests).
 * H and g are psum'd over the mesh axis exactly like the point/plane
   moments, so distributed GICP falls out of the same ``axis_name``
@@ -128,14 +127,13 @@ def gicp_normal_equations(
     b = _unit(target_normals)
     r0 = p - q
 
-    # Woodbury form of the per-point metric (the TPU-shaped assembly):
+    # Woodbury form of the per-point metric (the batched-elementwise assembly):
     # A = 2I - alpha (aa^T + bb^T)  =>  M = A^{-1} = I/2 + G E G^T with
     # G = [a b] and a closed-form symmetric 2x2 E from kappa = 1/2 - 1/alpha
     # and c = a.b. This removes every [N,3,3] intermediate: the dense
-    # einsum-block assembly moved ~15 x 36 MB of [N,3,3] arrays through HBM
-    # at 1M points (31 ms/iter measured); here the H/g blocks are [N,3]
-    # cross products plus [3,N]x[N,3] MXU matmul reductions (~3x faster at
-    # 1M). inv3x3_sym stays as the general-covariance reference
+    # einsum-block assembly moved ~15 x 36 MB of [N,3,3] arrays through
+    # device memory at 1M points; here the H/g blocks are [N,3] cross
+    # products plus [3,N]x[N,3] matmul reductions. inv3x3_sym stays as the general-covariance reference
     # implementation (tests cross-check the two).
     alpha = 1.0 - epsilon
     if alpha <= 0.0:  # epsilon >= 1: both covariances are exactly I, M = I/2

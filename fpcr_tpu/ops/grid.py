@@ -1,9 +1,9 @@
 """Voxel-hash spatial grid for fixed-radius nearest-neighbor search.
 
 The reference has no acceleration structure — its matching is O(N·M) brute
-force, which caps it at ~16k points (BASELINE.md). The 1M-point north star
-(<10 ms/iteration) is unreachable brute-force (10¹² distance pairs), so this
-module adds the classic spatial-hash grid, redesigned static-shape/TPU-first:
+force, which caps it at ~16k points (BASELINE.md). At 1M points brute force
+is out of reach (10¹² distance pairs per iteration), so this
+module adds the classic spatial-hash grid, redesigned with static shapes:
 
 * **Build** (once per target cloud): quantize points to ``cell = floor(q/h)``,
   spatial-hash each cell into a power-of-two table (the 73856093/19349663/
@@ -101,12 +101,12 @@ def _neighbor_offsets() -> np.ndarray:
     return np.stack(np.meshgrid(g, g, g, indexing="ij"), axis=-1).reshape(27, 3)
 
 
-# Measured on v5e (BENCH_NOTES round 1): the grid query's random candidate
-# gather is fine at 262k source points (57M gathered rows) but CRASHES the
-# TPU worker at 1M (226M rows). Hard-cap the candidate-gather volume well
-# inside the safe regime so a mis-configured run degrades to a clear error
-# instead of taking the device down.
+# Bound on the candidate rows one query pass gathers (N × 27 × cap): each
+# row is a 12-byte f32 point, so the cap is ~1.4 GB of random gathers per
+# ICP iteration. The banded Morton matcher reads contiguous bands instead
+# and is the large-N path above it.
 MAX_CANDIDATE_GATHERS = 120_000_000
+CANDIDATE_ROW_BYTES = 12
 
 
 @functools.partial(
@@ -124,19 +124,19 @@ def grid_nn(
     the ORIGINAL target order; rows with no candidate have found=False.
 
     Raises ``ValueError`` when the total candidate gather volume
-    (``N × 27 × cap``) exceeds ``max_candidate_gathers`` — beyond that the
-    program is known to crash the TPU worker; use ``matcher='morton'``.
+    (``N × 27 × cap`` rows) exceeds ``max_candidate_gathers``; use
+    ``matcher='morton'`` for such clouds.
     """
     n = p.shape[0]
     budget = n * 27 * cap
     if budget > max_candidate_gathers:
         raise ValueError(
-            f"grid_nn candidate budget {budget:,} (N={n:,} x 27 x cap={cap}) "
-            f"exceeds the safe limit {max_candidate_gathers:,}; the gather "
-            "pressure at this size crashes the TPU worker. Use "
-            "ICPConfig(matcher='morton') for large clouds (the production "
-            "large-N path), or lower cap / raise max_candidate_gathers "
-            "explicitly if you know the hardware tolerates it.")
+            f"grid_nn candidate budget {budget:,} rows (N={n:,} x 27 x "
+            f"cap={cap}, {budget * CANDIDATE_ROW_BYTES / 1e9:.1f} GB of "
+            f"gathered points) exceeds the limit {max_candidate_gathers:,}. "
+            "Use ICPConfig(matcher='morton') for large clouds (the "
+            "production large-N path), or lower cap / raise "
+            "max_candidate_gathers explicitly.")
     p = p.astype(jnp.float32)
     offsets = jnp.asarray(_neighbor_offsets(), jnp.int32)  # [27, 3]
     m = table.points_sorted.shape[0]
@@ -227,7 +227,7 @@ def voxel_downsample(
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Voxel-grid downsampling: one centroid per occupied voxel.
 
-    TPU-native static-shape formulation: quantize → spatial-hash-free exact
+    Static-shape formulation: quantize → spatial-hash-free exact
     voxel keys (sorted lexicographic cell ids) → one XLA sort → run-length
     segment ids by `cumsum(key_change)` → `segment_sum` centroids with a
     static ``num_segments = N`` bound. Returns ``(centroids [N, 3],
@@ -236,8 +236,8 @@ def voxel_downsample(
     jit). Order of valid centroids follows the voxel key sort.
 
     The reference has no downsampling utility; this is the standard
-    pipeline prepass (e.g. coarse stages, map maintenance) built the TPU
-    way instead of the usual hash-map way.
+    pipeline prepass (e.g. coarse stages, map maintenance) built with
+    static shapes instead of the usual hash map.
     """
     n = points.shape[0]
     points = points.astype(jnp.float32)

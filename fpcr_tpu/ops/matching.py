@@ -1,12 +1,13 @@
-"""Brute-force nearest-neighbor correspondence search, TPU-first.
+"""Brute-force nearest-neighbor correspondence search in XLA.
 
 This replaces the reference's ``Matching`` CUDA kernel family
 (/root/reference/src/ICP_standard.cu:21-39 naive;
 /root/reference/src/CUDA/ICP_point_to_point_clean.cu:32-73 optimized ladder:
 sqrt dropped, pow -> mult, query point in registers, split j-loop). The CUDA
-design is one scalar thread per source point scanning all targets — exactly
-what a TPU is bad at. Here the O(N·M) distance computation is reformulated so
-the dominant term ``-2 P·Qᵀ`` is a matmul on the MXU:
+design is one scalar thread per source point scanning all targets (the
+fused GPU kernel in ``ops/matching_pallas.py`` keeps that shape). Here the
+O(N·M) distance computation is reformulated for XLA so the dominant term
+``-2 P·Qᵀ`` is a matmul:
 
     d(i, j) = |p_i|² - 2 p_i·q_j + |q_j|²   (sqrt dropped: monotone, same
     argmin — the reference applies the identical optimization at
@@ -47,7 +48,7 @@ def pairwise_sqdist(p: jnp.ndarray, q: jnp.ndarray,
     """Squared Euclidean distances ``[n, m]`` via the MXU-friendly
     ``|p|² - 2p·q + |q|²`` expansion (f32 accumulation).
 
-    ``precision=None`` → HIGHEST (full f32: TPU default bf16 passes perturb
+    ``precision=None`` → HIGHEST (full f32: bf16/TF32 passes perturb
     distances ~0.4% and break argmin parity near ties). Pass
     ``jax.lax.Precision.DEFAULT`` for the fast bf16 path when approximate
     matches are acceptable (ICP self-corrects across iterations)."""

@@ -1,62 +1,33 @@
-"""Pallas TPU kernel: brute-force NN matching as a fused tiled
-distance + running-argmin, the performance-critical op of the framework.
+"""Fused brute-force nearest-neighbour search for the GPU (Pallas, Triton).
 
-This is the TPU-native answer to the reference's ``Matching`` kernel
-optimization ladder (/root/reference/src/CUDA/Matching_opt.cu:15-56 — drop
-sqrt, pow→mult, query in registers, split loop; see BASELINE.md §matching).
-Design:
+This is the reference's ``Matching`` kernel
+(/root/reference/src/CUDA/ICP_point_to_point_clean.cu:32-73) rewritten for
+Hopper through Pallas's Triton route. The reference runs one thread per
+source point, keeps the query in registers and scans every target with a
+strict-``<`` first minimum. The plain XLA path (``ops/matching.py``) instead
+writes each ``[source_chunk, target_tile]`` distance tile to device memory
+and reads it back for the argmin. This kernel never materialises a distance
+tile outside registers:
 
-* **Full-distance augmented matmul**: with ``p̂ = [-2p, 1, |p|²]`` and
-  ``q̂ = [q, |q|², 1]`` (padded to 8 lanes), ``p̂ · q̂ = |p|² − 2 p·q + |q|²``
-  is the EXACT squared distance — the whole pairwise term is ONE MXU
-  ``dot_general`` per (source-tile × target-tile) block with zero
-  elementwise VPU work (round 1 added ``|p|²`` as a separate broadcast
-  pass; folding it into a 5th lane measured ~35% faster at 16k). No sqrt,
-  exactly like the reference's monotone-distance optimization. Invalid
-  (padded) targets are encoded directly in q̂ with a huge ``|q|²``
-  surrogate — no separate masking pass.
-* **Lane-major target layout**: q̂ is fed transposed as ``[8, M]`` so a
-  target block is a 128-aligned lane slice — a ``[M, 8]`` layout would pad
-  its minor dim to 128 in VMEM (16× DMA waste).
-* **Streaming argmin**: grid = (source_tiles × target_tiles), target
-  innermost; the running (min, argmin) columns live in the revisited output
-  block (VMEM-resident across the target sweep). The [N, M] distance matrix
-  never exists in HBM.
-* **Tie-break parity**: within a tile ``jnp.argmin`` keeps the first
-  minimum; across tiles strict ``<`` keeps the earlier tile — the
-  reference's first-strict-min semantics
-  (/root/reference/src/CUDA/ICP_point_to_point_clean.cu:53-57).
+* each program (one thread block) owns ``block_n`` source rows, kept in
+  registers, and loops over the whole target in ``block_m``-wide tiles. No
+  state is shared between blocks and no atomics are needed;
+* the target is stored structure-of-arrays ``[3, M]`` so a tile is three
+  contiguous power-of-two loads;
+* distances use the difference form ``(p-q)·(p-q)`` in f32 on the CUDA
+  cores: no matrix unit, no TF32 and no cancellation, the arithmetic of
+  ``matching.pairwise_sqdist_exact``;
+* the running minimum is kept per ``(row, column-in-tile)`` element, with
+  the tile index of its first occurrence. Only after the last tile is it
+  reduced across the columns, so the loop body has no cross-thread
+  reduction. Strict ``<`` across tiles plus the smallest index among equal
+  column minima gives the reference's first-min tie-break;
+* masked and padded targets have ``x = +inf``: their distance overflows to
+  ``+inf`` and they never win. A row with no valid target keeps index 0 and
+  distance ``+inf``, the convention of ``matching.nn_argmin``.
 
-* **K-packed bf16x6 (round-2 default)**: an MXU pass costs the same for
-  any contraction depth K ≤ 128, so the ~6 SEQUENTIAL bf16 passes a
-  HIGHEST-precision f32 matmul performs over the K=8 augmentation are
-  instead laid out ALONG K — the six bf16x6 term pairs of triple-split
-  operands as one K=48 bf16 matmul. Same f32-grade distances, one-pass
-  cost.
-* **Packed (value|index) reduction (round-5, opt-in ``packed6_idx``)**:
-  nonneg-f32 distance bits are order-preserving as int32, so splicing the
-  global column index into the low mantissa bits collapses min+argmin
-  into ONE int32 min — the round-5 ablation (scripts/exp_reduction2.py on
-  hardware) measured the matmul + a single reduction pass at 0.395 ms
-  @16k vs 0.45 for min+argmin+update, and that single pass is the
-  kernel's floor (restructured two-stage/lane-parallel reductions all
-  measured slower). Selection quantization: the dropped
-  ``log2(m_pad)`` mantissa bits bound near-tie swaps at ~2^-(23-bits)
-  relative sqdist (2e-3 at 16k) — the same class of ties packed6 itself
-  swaps, and returned distances are recomputed exactly against the
-  selected target outside the kernel. The bound is RELATIVE: on a
-  displaced cloud whose NN plateaus hold many candidates within 0.2%,
-  a few % of rows pick a different (equivalent-quality) candidate —
-  GT-recovery parity is asserted on hardware (tpu_smoke check 1b).
-
-Measured (v5e, slope method with separate min-of-k legs, N=M=16,384):
-**0.47 ms** standalone (packed6) vs 2.22 ms for the HIGHEST kernel and
-2.30 ms for the reference's best CUDA kernel on an RTX 2060
-(committed round-3 ladder: bench_results/match_ladder_tpu.csv)
-(``Matching_loop_optimized.csv``) — 5.9x faster than both; see
-docs/performance.md for the precision study and the packed-K analysis.
-
-On non-TPU backends the kernel runs in interpreter mode (slow; tests only).
+The kernel serves 3-D clouds only. Feature-space searches (FPFH's 33-D
+descriptors) keep ``matching.nn_argmin``.
 """
 
 from __future__ import annotations
@@ -66,268 +37,101 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..core.cloud import round_up
 
-_LANES = 8  # augmented coordinate width (5 used, padded to 8 sublanes)
-_INVALID_SURROGATE = 1e30  # |q|² stand-in for masked targets
 
+def _nn_kernel(p_ref, q_ref, d_ref, i_ref, *, block_n: int, block_m: int,
+               num_tiles: int):
+    rows = pl.ds(pl.program_id(0) * block_n, block_n)
+    px = p_ref[0, rows][:, None]
+    py = p_ref[1, rows][:, None]
+    pz = p_ref[2, rows][:, None]
 
-def _matching_kernel(p_ref, qT_ref, best_d_ref, best_i_ref, *,
-                     precision):
-    j = pl.program_id(1)
+    def body(j, carry):
+        best, tile = carry
+        cols = pl.ds(pl.multiple_of(j * block_m, block_m), block_m)
+        dx = px - q_ref[0, cols][None, :]
+        dy = py - q_ref[1, cols][None, :]
+        dz = pz - q_ref[2, cols][None, :]
+        d = dx * dx + dy * dy + dz * dz
+        better = d < best  # strict: the earlier tile keeps a tie
+        return jnp.where(better, d, best), jnp.where(better, j, tile)
 
-    @pl.when(j == 0)
-    def _init():
-        best_d_ref[:] = jnp.full_like(best_d_ref, jnp.inf)
-        best_i_ref[:] = jnp.zeros_like(best_i_ref)
+    init = (jnp.full((block_n, block_m), jnp.inf, jnp.float32),
+            jnp.zeros((block_n, block_m), jnp.int32))
+    best, tile = lax.fori_loop(0, num_tiles, body, init)
 
-    # d[bn, bm] = |p|² - 2 p·q + |q|² — one MXU matmul, no VPU arithmetic
-    d = jax.lax.dot_general(
-        p_ref[:], qT_ref[:],
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=precision,
-    )
-
-    local_arg = jnp.argmin(d, axis=1).astype(jnp.int32)[:, None]  # [bn, 1]
-    local_min = jnp.min(d, axis=1)[:, None]  # [bn, 1]
-
-    bm = qT_ref.shape[1]
-    global_arg = j * bm + local_arg
-
-    better = local_min < best_d_ref[:]  # strict: earlier tile wins ties
-    best_d_ref[:] = jnp.where(better, local_min, best_d_ref[:])
-    best_i_ref[:] = jnp.where(better, global_arg, best_i_ref[:])
-
-
-def _packed_idx_kernel(p_ref, qT_ref, best_ref, *, idx_bits):
-    """min+argmin as ONE int32 min: global column index spliced into the
-    low ``idx_bits`` mantissa bits of the nonneg distance's bit pattern
-    (order-preserving for nonneg f32). The running best is the packed
-    word itself — unpacked outside the kernel."""
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _init():
-        # f32 max-finite bit pattern: any real distance wins
-        best_ref[:] = jnp.full_like(best_ref, jnp.int32(0x7F7FFFFF))
-
-    d = jax.lax.dot_general(
-        p_ref[:], qT_ref[:],
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)
-    bm = qT_ref.shape[1]
-    col = jax.lax.broadcasted_iota(jnp.int32, d.shape, 1) + j * bm
-    bits = jax.lax.bitcast_convert_type(jnp.maximum(d, 0.0), jnp.int32)
-    packed = (bits & jnp.int32(~((1 << idx_bits) - 1))) | col
-    best_ref[:] = jnp.minimum(best_ref[:],
-                              jnp.min(packed, axis=1)[:, None])
-
-
-def _augment(p: jnp.ndarray, q: jnp.ndarray, q_mask: Optional[jnp.ndarray],
-             n_pad: int, m_pad: int):
-    """Build p̂ [n_pad, 8] = [-2p, 1, |p|², 0...] and the lane-major
-    q̂ᵀ [8, m_pad] with rows [q, |q|², 1, 0...] (f32)."""
-    n, m = p.shape[0], q.shape[0]
-    p = p.astype(jnp.float32)
-    q = q.astype(jnp.float32)
-
-    # single concat (one fused XLA kernel) instead of scatter .at[].set
-    # chains — this runs EVERY loop iteration (p moves), so its kernel
-    # count matters
-    p_hat = jnp.concatenate([
-        -2.0 * p,
-        jnp.ones((n, 1), jnp.float32),
-        jnp.sum(p * p, axis=1, keepdims=True),
-        jnp.zeros((n, _LANES - 5), jnp.float32),
-    ], axis=1)
-    if n_pad > n:
-        # padded source rows: p̂ = 0 → d = 0 everywhere; harmless rows.
-        p_hat = jnp.pad(p_hat, ((0, n_pad - n), (0, 0)))
-
-    q_sq = jnp.sum(q * q, axis=1)
-    if q_mask is not None:
-        q_sq = jnp.where(q_mask, q_sq, _INVALID_SURROGATE)
-        qv = jnp.where(q_mask[:, None], q, 0.0)
-    else:
-        qv = q
-    qT = jnp.zeros((_LANES, m_pad), jnp.float32)
-    qT = qT.at[:3, :m].set(qv.T)
-    qT = qT.at[3, :m].set(q_sq)
-    qT = qT.at[4, :m].set(1.0)
-    # padded target rows get the invalid surrogate too (lane-4 left at 0 is
-    # irrelevant — the surrogate alone dominates the min)
-    if m_pad > m:
-        qT = qT.at[3, m:].set(_INVALID_SURROGATE)
-    return p_hat, qT
-
-
-def split3_f32(x):
-    """Triple-bf16 split values kept in f32: x = h + m + l exactly
-    (8+8+8 mantissa bits — all 24 f32 mantissa bits covered). The ONE
-    implementation of this split (morton_pallas packs from it too;
-    ndt_pallas uses a different bit-twiddle variant for integer cells).
-
-    Uses ``lax.reduce_precision`` for the roundings: with XLA's default
-    ``--xla_allow_excess_precision=true`` a plain ``x - bf16(x).astype(f32)``
-    is ELIDED to zero (the compiler keeps the f32 value through the cast
-    pair); reduce_precision is a semantic rounding op and survives.
-    """
-    h = jax.lax.reduce_precision(x, exponent_bits=8, mantissa_bits=7)
-    r = x - h
-    m = jax.lax.reduce_precision(r, exponent_bits=8, mantissa_bits=7)
-    l = jax.lax.reduce_precision(r - m, exponent_bits=8, mantissa_bits=7)
-    return h, m, l
-
-
-def _split3(x: jnp.ndarray):
-    """Triple-bf16 split cast to bf16 parts (see ``split3_f32``)."""
-    h32, m32, l32 = split3_f32(x)
-    return (h32.astype(jnp.bfloat16), m32.astype(jnp.bfloat16),
-            l32.astype(jnp.bfloat16))
+    dmin = jnp.min(best, axis=1)
+    col = lax.broadcasted_iota(jnp.int32, (block_n, block_m), 1)
+    index = jnp.where(best == dmin[:, None], tile * block_m + col,
+                      jnp.iinfo(jnp.int32).max)
+    d_ref[rows] = dmin
+    i_ref[rows] = jnp.min(index, axis=1)
 
 
 @functools.partial(
-    jax.jit, static_argnames=("block_n", "block_m", "interpret", "mode")
-)
+    jax.jit,
+    static_argnames=("block_n", "block_m", "num_warps", "interpret"))
 def nn_argmin_pallas(
     p: jnp.ndarray,
     q: jnp.ndarray,
     q_mask: Optional[jnp.ndarray] = None,
     *,
-    block_n: int = 512,
-    block_m: int = 8192,
-    interpret: Optional[bool] = None,
-    mode: str = "packed6",
+    block_n: int = 64,
+    block_m: int = 64,
+    num_warps: int = 4,
+    interpret: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Pallas nearest-neighbor search: drop-in for ``matching.nn_argmin``.
+    """Drop-in for ``matching.nn_argmin`` on 3-D clouds, on the GPU.
 
-    ``mode``:
-      * ``"packed6"`` (default) — the K-packed bf16x6 kernel: an MXU pass
-        costs the same for any contraction depth K <= 128, so instead of
-        HIGHEST's ~6 SEQUENTIAL bf16 passes over the K=8 augmentation, the
-        six bf16x6 term pairs (h,h')(h,m')(m,h')(h,l')(l,h')(m,m') of the
-        triple-split operands are laid out ALONG K as one K=48 bf16
-        matmul. f32-grade distances (|err| ~ 1e-6 ulp-level; on 16,384
-        reference-scene points 1-2 argmin picks differ from exact, each a
-        near-tie within 1e-6 sqdist) at one-pass cost: measured 0.47 ms vs
-        2.22 ms for ``"highest"`` and 2.30 ms for the reference's best
-        CUDA kernel — 4.7x (bench_results/match_ladder_tpu.csv, round 3).
-      * ``"highest"`` — bit-exact HIGHEST-precision dot (the round-1
-        kernel; strict first-min tie semantics against f32 distances).
-      * ``"packed6_idx"`` — packed6 operands with the round-5 packed
-        (value|index) reduction: min+argmin collapse into ONE int32 min
-        per tile (the measured kernel floor, 0.395 ms @16k vs 0.45 for
-        the separate reductions — scripts/exp_reduction2.py). Index
-        selection may swap near-ties within ~2^-(23-log2(m_pad))
-        relative sqdist (2e-3 at 16k); returned distances are recomputed
-        exactly against the selected target. Requires m_pad <= 2^16.
+    ``block_n`` source rows per program and ``block_m`` targets per loop
+    step must be powers of two. ``interpret=True`` runs the kernel in the
+    Pallas interpreter (any backend; tests). Otherwise a GPU is required.
 
     Returns ``(idx int32[N], sqdist float32[N])``.
     """
-    if mode not in ("packed6", "highest", "packed6_idx"):
-        raise ValueError(f"unknown mode {mode!r}")
-    n, m = p.shape[0], q.shape[0]
-    bn = min(block_n, round_up(n, 8))
-    bm = min(block_m, round_up(m, 128))
-    n_pad = round_up(n, bn)
-    m_pad = round_up(m, bm)
-    if mode == "packed6_idx" and m_pad > (1 << 16):
+    if p.ndim != 2 or p.shape[1] != 3 or q.ndim != 2 or q.shape[1] != 3:
         raise ValueError(
-            f"mode='packed6_idx' supports m_pad <= 2^16 (got {m_pad}): "
-            "beyond that the index bits eat too much mantissa — use the "
-            "morton matcher at that scale")
+            f"nn_argmin_pallas serves 3-D clouds only (got source "
+            f"{p.shape}, target {q.shape}); use ops.matching.nn_argmin")
+    for name, b in (("block_n", block_n), ("block_m", block_m)):
+        if b < 1 or b & (b - 1):
+            raise ValueError(f"{name} must be a power of two (got {b})")
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            "nn_argmin_pallas is a GPU kernel (Pallas, Triton route); the "
+            f"'{jax.default_backend()}' backend cannot run it. Use "
+            "matcher='xla' here, or interpret=True for a test.")
 
-    p_hat, qT = _augment(p, q, q_mask, n_pad, m_pad)
+    n, m = p.shape[0], q.shape[0]
+    n_pad = round_up(n, block_n)
+    m_pad = round_up(m, block_m)
 
-    if mode in ("packed6", "packed6_idx"):
-        ph, pm, plo = _split3(p_hat)
-        qh, qm, qlo = _split3(qT)
-        pairs = [(ph, qh), (ph, qm), (pm, qh), (ph, qlo), (plo, qh),
-                 (pm, qm)]
-        p_in = jnp.concatenate([a for a, _ in pairs], axis=1)  # [n, 48]
-        q_in = jnp.concatenate([b for _, b in pairs], axis=0)  # [48, m]
-        kk = _LANES * len(pairs)
-        precision = None  # bf16 inputs: single-pass MXU
-    else:
-        p_in, q_in, kk = p_hat, qT, _LANES
-        precision = jax.lax.Precision.HIGHEST
+    p_t = jnp.zeros((3, n_pad), jnp.float32).at[:, :n].set(
+        p.astype(jnp.float32).T)
+    valid = jnp.arange(m_pad) < m
+    if q_mask is not None:
+        valid = valid & jnp.pad(q_mask.astype(bool), (0, m_pad - m))
+    q_t = jnp.zeros((3, m_pad), jnp.float32).at[:, :m].set(
+        q.astype(jnp.float32).T)
+    q_t = jnp.where(valid[None, :], q_t,
+                    jnp.array([[jnp.inf], [0.0], [0.0]], jnp.float32))
 
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
-
-    grid = (n_pad // bn, m_pad // bm)
-    cost = pl.CostEstimate(
-        flops=2 * n_pad * m_pad * kk + 2 * n_pad * m_pad,
-        bytes_accessed=(n_pad * kk * 4 * (m_pad // bm)
-                        + m_pad * kk * 4 * (n_pad // bn)
-                        + n_pad * 8),
-        transcendentals=0,
-    )
-
-    if mode == "packed6_idx":
-        idx_bits = max(1, (m_pad - 1).bit_length())
-        packed = pl.pallas_call(
-            functools.partial(_packed_idx_kernel, idx_bits=idx_bits),
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((bn, kk), lambda i, j: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((kk, bm), lambda i, j: (0, j),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((bn, 1), lambda i, j: (i, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((n_pad, 1), jnp.int32),
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary")),
-            cost_estimate=cost,
-            interpret=interpret,
-        )(p_in, q_in)[:n, 0]
-        idx = packed & jnp.int32((1 << idx_bits) - 1)
-        d_q = jax.lax.bitcast_convert_type(
-            packed & jnp.int32(~((1 << idx_bits) - 1)), jnp.float32)
-        # exact distance against the SELECTED target (quantization only
-        # ever affects near-tie index picks, never the reported distance);
-        # the surrogate/no-valid-target check runs on the quantized value,
-        # where masked targets still carry their ~1e30 signature
-        diff = p.astype(jnp.float32) - q.astype(jnp.float32)[idx]
-        d_exact = jnp.sum(diff * diff, axis=1)
-        return idx, jnp.where(d_q >= _INVALID_SURROGATE * 0.5, jnp.inf,
-                              d_exact)
-
-    best_d, best_i = pl.pallas_call(
-        functools.partial(_matching_kernel, precision=precision),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((bn, kk), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((kk, bm), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((bn, 1), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((bn, 1), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_pad, 1), jnp.float32),
-            jax.ShapeDtypeStruct((n_pad, 1), jnp.int32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary")),
-        cost_estimate=cost,
+    kernel = functools.partial(_nn_kernel, block_n=block_n, block_m=block_m,
+                               num_tiles=m_pad // block_m)
+    d, idx = pl.pallas_call(
+        kernel,
+        grid=(n_pad // block_n,),
+        out_shape=(jax.ShapeDtypeStruct((n_pad,), jnp.float32),
+                   jax.ShapeDtypeStruct((n_pad,), jnp.int32)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=2),
         interpret=interpret,
-    )(p_in, q_in)
-
-    # f32 cancellation can leave tiny negatives on exact/near-zero matches.
-    # Rows whose every candidate was masked carry the ~1e30 invalid
-    # surrogate — map them back to inf so "no valid target" is detectable
-    # the same way as nn_argmin's (review find r3: drop-in contract)
-    d = best_d[:n, 0]
-    d = jnp.where(d >= _INVALID_SURROGATE * 0.5, jnp.inf, d)
-    return best_i[:n, 0], jnp.maximum(d, 0.0)
+        name="nn_argmin_fused",
+    )(p_t, q_t)
+    return idx[:n], d[:n]

@@ -1,6 +1,6 @@
 """Morton-order windowed nearest-neighbor matching — the large-N matcher.
 
-Random gathers are the one memory pattern a TPU cannot stream: the voxel-hash
+Random gathers stream poorly compared with contiguous reads: the voxel-hash
 matcher (ops/grid.py) is correct but gather-bound (µs per point). This module
 replaces gathers with *contiguous band reads*:
 
@@ -194,7 +194,7 @@ def morton_nn(
 
     # Statically unroll `unroll` chunks per map step: each per-chunk tile is
     # tiny (band reads + a [chunk, band] distance block), so the XLA loop
-    # step overhead (~8 µs on the TPU runtime) would dominate at large N.
+    # step overhead would dominate at large N.
     u = fit_unroll(num_chunks, unroll)
 
     def per_group(args):
@@ -327,8 +327,8 @@ def band_quality_probe(
     p_s = jnp.take(p, rows, axis=0)
     d_band_s = np.asarray(jnp.take(d_band, rows))
 
-    # streaming exact NN (never O(sample·M) HBM — a dense [sample, M]
-    # matrix is 17 GB at M=1M, measured RESOURCE_EXHAUSTED on-chip)
+    # streaming exact NN (never O(sample·M) memory — a dense [sample, M]
+    # matrix is 17 GB at M=1M)
     from .matching import nn_argmin
 
     q = table.points_sorted

@@ -5,9 +5,9 @@ replaces point-to-point correspondences with a piecewise-smooth Gaussian
 field: the target cloud is voxelized once, each occupied voxel keeps the
 mean and covariance of its points, and registration maximizes the
 likelihood of the transformed source under that field. The CUDA reference
-has no NDT; this is a beyond-reference model family built the TPU way.
+has no NDT; this is a beyond-reference model family.
 
-TPU-first design (static shapes throughout, no hash maps):
+Design (static shapes throughout, no hash maps):
 
 * **Grid build = one sort + segment_sums.** Voxel cells are packed into a
   30-bit scalar key (10 bits/axis relative to the cloud min corner — the
@@ -48,6 +48,11 @@ _AXIS_BITS = 10  # 1024 cells per axis — ample for NDT resolutions
 # time, which breaks jax.distributed.initialize() in multihost processes
 # (same trap ops/eigh3.py documents for trace leakage).
 _KEY_PAD = 2 ** 31 - 1
+# jnp.searchsorted algorithm of the gather lookup: 'scan' (a binary search,
+# ~log2(K) dependent gathers) or 'sort' (one sort of queries + keys). At
+# 262,144 queries on an H100 80GB HBM3, three runs gave sort 0.474 / 0.378 /
+# 0.406 ms against scan 0.494 / 0.539 / 0.367 ms: close, sort ahead twice.
+SEARCH_METHOD = "sort"
 
 
 class NDTGrid(NamedTuple):
@@ -59,9 +64,8 @@ class NDTGrid(NamedTuple):
     valid: jnp.ndarray      # [N] bool — voxel exists and has >= min_points
     lo: jnp.ndarray         # [3] grid origin (min corner)
     voxel_size: jnp.ndarray  # scalar f32
-    # fused per-voxel row for single-gather lookup (TPU: each HBM row
-    # gather is expensive, so one [N, 16] take replaces four separate
-    # takes — measured 4x faster lookups at 16k):
+    # fused per-voxel row for single-gather lookup (one [N, 16] row take
+    # instead of four separate takes of keys/valid/mu/sinv):
     # lanes [mu(3) | sinv upper-triangle(6) | valid(1) | key_hi(1) |
     #        key_lo(1) | pad(4)] — the 30-bit key is split 15/15 so both
     # halves are exact in f32 (< 2^24)
@@ -187,6 +191,8 @@ def ndt_lookup(
     points: jnp.ndarray,
     grid: NDTGrid,
     cell_offset: Optional[jnp.ndarray] = None,
+    *,
+    method: str = SEARCH_METHOD,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Per-point voxel stats: ``(mu [N,3], sinv [N,3,3], valid [N])``.
 
@@ -195,7 +201,8 @@ def ndt_lookup(
     DIRECT7-style multi-voxel field — see ``models/ndt.py``). Points whose
     queried voxel is unoccupied (or under-populated) come back with
     ``valid=False`` and zero ``sinv`` — they drop out of the Newton
-    assembly through the weight, not through control flow.
+    assembly through the weight, not through control flow. ``method`` is
+    ``jnp.searchsorted``'s algorithm (see ``SEARCH_METHOD``).
     """
     c = _cells_raw(points.astype(jnp.float32), grid.lo, grid.voxel_size)
     if cell_offset is not None:
@@ -205,14 +212,9 @@ def ndt_lookup(
     inb = _in_range(c)
     k = jnp.where(inb, _pack(jnp.clip(c, 0, (1 << _AXIS_BITS) - 1)),
                   jnp.int32(-1))  # -1 < every real key and != pad
-    # TPU: the default binary-search lowering does ~log2(N) sequential
-    # row-gathers (measured 40 ms at 262k); the sort-based method is one
-    # XLA sort (~8 ms). CPU (tests) keeps the cheaper scan.
-    method = "sort" if jax.default_backend() == "tpu" else "scan"
     pos = jnp.searchsorted(grid.keys, k, method=method)
     pos = jnp.clip(pos, 0, grid.keys.shape[0] - 1)
-    # ONE fused row gather (see NDTGrid.table): separate takes of
-    # keys/valid/mu/sinv cost ~4x more on TPU (row-gather bound)
+    # ONE fused row gather (see NDTGrid.table)
     row = jnp.take(grid.table, pos, axis=0)  # [N, 16]
     key_match = ((row[:, 10] == (k >> 15).astype(jnp.float32))
                  & (row[:, 11] == (k & 0x7FFF).astype(jnp.float32)))
@@ -248,33 +250,29 @@ def ndt_lookup_banded(
     """Gather-free ``ndt_lookup``: contiguous band reads + one-hot matmuls.
 
     The per-point voxel row fetch is the one random gather in the NDT
-    loop — 82 ms/iteration at 262k points (BENCH_NOTES §NDT r2), the
-    framework's worst-scaling op. This variant applies the Morton-band
-    pattern (ops/morton.py) to the voxel table instead:
+    loop. This variant applies the Morton-band pattern (ops/morton.py) to
+    the voxel table instead:
 
     * ``points`` rows must be spatially coherent in VOXEL-KEY order (sort
       the source once by its cell key in the grid's frame before the loop;
       rigid iterates stay coherent — same contract as the Morton matcher);
     * each chunk of ``chunk`` consecutive points locates its key rank in
       the ascending unique-key table with ONE searchsorted probe — the
-      chunk's MAX valid key (robust to leading miss rows; and note the
-      asymmetry: every other query in the chunk sits BELOW the probe
-      rank, which is exactly what the ``_resolve_fused`` coverage policy
-      accounts for with its one-sided ``D + 2S + 128 − chunk/2`` bound) —
-      then reads the contiguous table band centered on it with
-      ``dynamic_slice`` — zero random gathers;
+      chunk's MAX valid key (robust to leading miss rows; every other
+      query in the chunk sits BELOW the probe rank) — then reads the
+      contiguous table band centered on it with ``dynamic_slice`` — zero
+      random gathers;
     * per point, the band row with the matching key is selected by an
-      exact equality compare ``[chunk, band]`` (VPU) and extracted with a
-      one-hot × band matmul on the MXU (HIGHEST precision — a default
-      bf16 pass would round the extracted μ/Σ⁻¹, the exact failure mode
-      BENCH_NOTES 'dead ends' records for the matcher's extraction).
+      exact equality compare ``[chunk, band]`` and extracted with a
+      one-hot × band matmul (HIGHEST precision — a bf16 or TF32 pass
+      would round the extracted μ/Σ⁻¹).
 
     Approximation contract: a key that exists in the table but lies
     outside the chunk's band reads as a MISS (w=0 in the solve) — same
     failure semantics as an unoccupied voxel, bounded by the window. Exact
     agreement with the gather path on coherent inputs is asserted in
-    tests; parity on the production sizes is re-checked on hardware
-    (scripts/tpu_smoke.py).
+    tests; ``chip_smoke.py`` compares the two registrations at 262,144
+    points on the GPU.
     """
     from ..core.cloud import fit_unroll, round_up
     from jax import lax
@@ -369,40 +367,3 @@ def gauss_d1_d2(outlier_ratio: float, resolution: float) -> Tuple[float, float]:
 # (Magnusson 2009 §6.3 sampling; None = no cell offset)
 DIRECT7_OFFSETS = (None, (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0),
                    (0, 0, 1), (0, 0, -1))
-
-
-def reference_neighborhood_moments(src, grid, d1, d2,
-                                   offsets=DIRECT7_OFFSETS):
-    """Numpy oracle for the fused Pallas kernel: explicit per-offset
-    gather-path accumulation of the neighborhood GN moments — ``WS = Σ_off
-    w·S``, ``WSr = Σ_off w·S·r``, neighbor hit ``count`` and ``qsum = Σ_off
-    q`` per source point. One implementation shared by the CPU test
-    (tests/test_ndt.py) and the on-hardware smoke check
-    (scripts/tpu_smoke.py), so the parity contract cannot drift between
-    them. Returns float32 arrays ``(WS [n,6], WSr [n,3], count [n],
-    qsum [n])``; ``WS`` packs the symmetric upper triangle in the order
-    (00, 01, 02, 11, 12, 22) — the fused kernel's lane layout.
-    """
-    import numpy as np
-
-    n = src.shape[0]
-    WS = np.zeros((n, 6), np.float32)
-    WSr = np.zeros((n, 3), np.float32)
-    count = np.zeros((n,), np.float32)
-    qsum = np.zeros((n,), np.float32)
-    sel = [(0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)]
-    for off in offsets:
-        o = None if off is None else jnp.asarray(off, jnp.int32)
-        mu, sinv, hit = ndt_lookup(src, grid, cell_offset=o)
-        mu, sinv, hit = map(np.asarray, (mu, sinv, hit))
-        r = np.asarray(src) - mu
-        sr = np.einsum("nij,nj->ni", sinv, r)
-        q = np.sum(r * sr, axis=1)
-        w = d1 * d2 * np.exp(np.clip(-0.5 * d2 * q, -60.0, 0.0))
-        w = np.where(hit, w, 0.0)
-        for k, (i, j) in enumerate(sel):
-            WS[:, k] += w * sinv[:, i, j]
-        WSr += w[:, None] * sr
-        count += hit.astype(np.float32)
-        qsum += np.where(hit, q, 0.0)
-    return WS, WSr, count, qsum

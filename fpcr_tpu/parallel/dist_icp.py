@@ -1,8 +1,8 @@
-"""Multi-chip ICP: source points sharded over a device mesh, moments psum'd
-over ICI.
+"""Multi-device ICP: source points sharded over a device mesh, moments
+psum'd between the devices.
 
 The reference is strictly single-GPU (SURVEY.md §2.4: no NCCL/MPI/multi-
-process anywhere); this module is the scaling design the TPU rebuild adds:
+process anywhere); this module is the scaling design this rebuild adds:
 
 * the source cloud is sharded along a ``points`` mesh axis (pure data
   parallelism over points — the natural axis since every ICP reduction is a
@@ -11,7 +11,8 @@ process anywhere); this module is the scaling design the TPU rebuild adds:
   brute-force argmin already produces *global* target indices;
 * the tiny per-iteration moments — 3-vector centroids, 3x3 cross-covariance,
   6x6 C / 6-vector b, squared-error scalars — are ``lax.psum``'d across the
-  axis (these few hundred bytes are the *only* per-iteration ICI traffic);
+  axis (these few hundred bytes are the *only* per-iteration traffic
+  between devices; on GPUs XLA hands the psum to NCCL);
 * every shard then solves the identical 3x3 SVD / 6x6 Cholesky and applies
   the identical update, so the loop state stays replicated by construction.
 
@@ -32,11 +33,6 @@ from ..core.cloud import round_up
 from ..models.icp import ICPConfig, ICPResult, _run_icp
 
 AXIS = "points"
-
-try:  # JAX >= 0.5 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover - older JAX
-    from jax.experimental.shard_map import shard_map  # type: ignore
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = AXIS) -> Mesh:
@@ -79,7 +75,7 @@ def distributed_icp(
     n = source.shape[0]
     source_p, source_mask = _pad_shardable(source.astype(jnp.float32), shards)
     # grid -> morton auto-degrade when the PER-SHARD candidate-gather budget
-    # exceeds the safe limit (models.icp.resolve_matcher); resolved here so
+    # exceeds the limit (models.icp.resolve_matcher); resolved here so
     # the prebuilt matcher table below matches the matcher actually run.
     from ..models.icp import resolve_matcher
 
@@ -159,16 +155,8 @@ def distributed_icp(
         delta_rot=P(),
     )
 
-    try:
-        fn = shard_map(
-            shard_fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_vma=False,
-        )
-    except TypeError:  # older shard_map signature
-        fn = shard_map(
-            shard_fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_rep=False,
-        )
+    fn = jax.shard_map(shard_fn, mesh=mesh, in_specs=in_specs,
+                       out_specs=out_specs, check_vma=False)
     # dummies keep the pytree structure static when optional inputs are absent
     tnorm_in = target_normals if has_normals else jnp.zeros((1, 3), jnp.float32)
     tmask_in = target_mask if has_tmask else jnp.zeros((1,), bool)
@@ -192,7 +180,7 @@ def distributed_ndt(
     Same decomposition as ``distributed_icp``: the voxel Gaussian grid is
     built once on the replicated target (every shard needs the whole
     field), source points are sharded along ``points``, and the per-
-    iteration 6x6 H / 6-vector g / scalar counters are psum'd over ICI —
+    iteration 6x6 H / 6-vector g / scalar counters are psum'd —
     the grid itself never moves after the one-time build. Returns a
     replicated ``NDTResult`` (``points`` unpadded).
     """
@@ -210,10 +198,9 @@ def distributed_ndt(
     grid = build_ndt_grid(target, config.voxel_size, target_mask,
                           min_points=config.min_points,
                           eig_ratio=config.eig_ratio)
-    from ..models.ndt import _resolve_fused, _resolve_lookup
+    from ..models.ndt import _resolve_lookup
 
     config = _resolve_lookup(config, n)
-    config = _resolve_fused(config, grid, src)
     order = None
     if config.lookup == "banded":
         # global voxel-key sort BEFORE sharding: each shard then holds a
@@ -238,12 +225,8 @@ def distributed_ndt(
         errors=P(), num_iterations=P(), converged=P(),
         points=P(AXIS, None), matched_fraction=P(),
     )
-    try:
-        fn = shard_map(shard_fn, mesh=mesh, in_specs=in_specs,
+    fn = jax.shard_map(shard_fn, mesh=mesh, in_specs=in_specs,
                        out_specs=out_specs, check_vma=False)
-    except TypeError:  # pragma: no cover - older shard_map signature
-        fn = shard_map(shard_fn, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs, check_rep=False)
     result = jax.jit(fn)(source_p, source_mask, grid)
     pts = result.points[:n]
     if order is not None:  # undo the coherence sort (original row order)

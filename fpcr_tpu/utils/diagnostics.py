@@ -3,7 +3,7 @@
 The reference's failure handling is ``cudaGetLastError`` after every launch
 plus status-code early exits (/root/reference/src/CUDA/ICP_point_to_point_clean.cu:329-330,
 352-356) and an SVD failure message (/root/reference/src/ICP_CPU.c:241-245).
-JAX is race-free by construction (SURVEY.md §5), so the TPU-native
+JAX is race-free by construction (SURVEY.md §5), so the on-device
 equivalents are numerical: non-finite detection on results, convergence
 failure reporting, and an opt-in global NaN debugger.
 """
@@ -52,7 +52,7 @@ def validate_result(result, *, require_converged: bool = False,
 
 @contextlib.contextmanager
 def debug_nans(enable: bool = True):
-    """Scoped ``jax_debug_nans`` — the TPU-native replacement for running
+    """Scoped ``jax_debug_nans`` — the on-device replacement for running
     under cuda-memcheck: any NaN-producing op raises at the op that made it."""
     if not enable:
         yield

@@ -1,6 +1,6 @@
 // fpcr_io — native data-layer primitives for fpcr_tpu.
 //
-// TPU-native counterpart of the reference's C++ data layer: the CSV cloud
+// Native counterpart of the reference's C++ data layer: the CSV cloud
 // tokenizer (readData, /root/reference/src/CUDA/GPU_point_to_point_bunny.cu:463-497)
 // and the Ouster packet byte-stream reader feeding Read_data
 // (/root/reference/src/CUDA/GPU_point_to_plane_real.cu:677-733). Host-side

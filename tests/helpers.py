@@ -28,7 +28,7 @@ def np_nn(p, q):
 def crossing_walls(seed: int, n_half: int = 4096, noise: float = 0.01):
     """The adversarial Morton-seam cloud: two thin walls crossing at the
     curve's top-bit boundary — the geometry where window widening alone
-    plateaus (BENCH_NOTES 'Morton window quality probe'). Wall A spans
+    plateaus. Wall A spans
     x,z with y ~ 0; wall B spans y,z with x ~ 0 (bit-identical to the
     former per-test constructions for the same seed)."""
     rng = np.random.default_rng(seed)

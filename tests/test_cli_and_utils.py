@@ -55,11 +55,11 @@ def test_cli_sweep_csv(tmp_path, capsys):
     rc = cli_main(["sweep", "--widths", "3:5", "--repeats", "1", "--csv", str(csv)])
     assert rc == 0
     lines = csv.read_text().strip().splitlines()
-    assert lines[0] == "n,ms,below_noise_floor"
+    assert lines[0] == "n,ms"
     rows = [line.split(",") for line in lines[1:]]
     assert [int(r[0]) for r in rows] == [9, 16, 25]
     assert all(float(r[1]) > 0 for r in rows)
-    assert all(r[2] in ("0", "1") for r in rows)
+    assert capsys.readouterr().out.strip().splitlines()[0].count(",") == 1
 
 
 def test_cli_info(capsys):
@@ -296,3 +296,13 @@ def test_matching_benchmark_rejects_unknown_variant():
 
     with pytest.raises(ValueError, match="unknown matching variants"):
         matching_benchmark(n=256, variants=("xla", "nope"), repeats=1)
+
+
+def test_matching_benchmark_default_variants_on_cpu():
+    """The default ladder is what the backend runs: the fused kernel
+    ('pallas') needs a GPU, so the CPU ladder leaves it out."""
+    from fpcr_tpu.bench.sweeps import matching_benchmark
+
+    res = matching_benchmark(n=64, repeats=1)
+    assert set(res) == {"n", "xla", "xla_exact", "morton"}
+    assert all(res[k] > 0 for k in ("xla", "xla_exact", "morton"))

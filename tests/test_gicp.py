@@ -112,7 +112,6 @@ def test_gicp_morton_matcher():
     gt = f.gt_transform((0.01, -0.02, 0.015), (0.02, -0.01, 0.02))
     tgt = gt.apply(src)
     res = f.run_icp(src, tgt, f.ICPConfig(metric="gicp", matcher="morton",
-                                          morton_impl="xla",
                                           max_iterations=25))
     assert float(f.transform_rmse(res.transform, gt, src)) < 1e-4
 

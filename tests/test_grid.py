@@ -96,8 +96,8 @@ def test_grid_handles_duplicate_points():
 
 
 def test_grid_nn_rejects_worker_crashing_sizes():
-    """1M-point grid queries crash the TPU worker (BENCH_NOTES round-1 dead
-    end); the raw op's candidate-budget guard must turn that into a clear
+    """A 1M-point grid query gathers ~226M candidate rows (~2.7 GB per
+    iteration); the raw op's candidate-budget guard turns that into a clear
     error that points at the morton matcher, BEFORE any device compute is
     issued."""
     import pytest
@@ -120,7 +120,7 @@ def test_grid_nn_rejects_worker_crashing_sizes():
 
 def test_icp_grid_matcher_degrades_to_morton_at_scale():
     """The DRIVER path never surfaces the grid guard: ICPConfig(matcher=
-    'grid') above the safe candidate-gather budget transparently degrades
+    'grid') above the candidate-gather budget transparently degrades
     to the morton matcher with a warning (VERDICT r3 #6). Traced at the
     real 1M size via eval_shape — the degrade decision is a trace-time
     property, no device compute needed."""

@@ -201,7 +201,7 @@ def test_hall_strict_error_sequence_parity():
     (/root/reference/src/CUDA/GPU_point_to_plane_real.cu:851 then
     :350-352), so the effective meters-space translation is
     1e-3 x (0.001, -0.0202, 0.02). Full error-sequence + transform parity
-    of the f32 TPU-native plane loop vs the f64 golden baseline on the
+    of the f32 JAX plane loop vs the f64 golden baseline on the
     reference's own flagship scene."""
     from fpcr_tpu.data.ouster import hall_scene
 

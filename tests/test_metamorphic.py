@@ -89,8 +89,8 @@ def test_source_permutation_invariance(scene):
 @pytest.mark.parametrize("metric", ["plane", "symmetric", "gicp"])
 def test_rigid_equivariance_other_metrics(scene, metric):
     """The normals-carrying metrics obey the same rigid equivariance (their
-    normals must rotate with the frame — the exact class of bug BENCH_NOTES
-    records for bf16 normal rotation)."""
+    normals must rotate with the frame — the class of bug a bf16 normal
+    rotation causes)."""
     cfg = f.ICPConfig(metric=metric, max_iterations=40)
     base = f.run_icp(scene.source, scene.target, cfg).transform
     w = f.gt_transform((0.2, -0.5, 0.3), (0.4, -0.2, 0.6))

@@ -3,14 +3,50 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from fpcr_tpu.parallel.multihost import initialize_multihost, local_shard_bounds
-from fpcr_tpu.utils.platform import backend_name, on_tpu
+from fpcr_tpu.utils import platform as platform_utils
+from fpcr_tpu.utils.platform import backend_name
 
 
 def test_platform_helpers_cpu():
     assert backend_name() == "cpu"  # conftest forces cpu
-    assert not on_tpu()
+    assert jax.default_backend() == backend_name()
+
+
+@pytest.fixture
+def restore_cache_dir():
+    old = jax.config.jax_compilation_cache_dir
+    yield
+    jax.config.update("jax_compilation_cache_dir", old)
+
+
+def test_compile_cache_honours_env(monkeypatch, tmp_path, restore_cache_dir):
+    """JAX_COMPILATION_CACHE_DIR is JAX's own setting: the helper returns
+    it and sets no other directory."""
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    before = jax.config.jax_compilation_cache_dir
+    assert platform_utils.enable_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_fixed_dir_in_checkout(monkeypatch, restore_cache_dir):
+    """Without the variable the cache is one fixed, git-ignored directory
+    inside the checkout: never a temp or per-process path."""
+    import os
+    import tempfile
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    first = platform_utils.enable_compile_cache()
+    assert platform_utils.enable_compile_cache() == first
+    assert jax.config.jax_compilation_cache_dir == first
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert first == os.path.join(repo, ".jax_cache")
+    assert not first.startswith(tempfile.gettempdir())
+    assert str(os.getpid()) not in first
+    with open(os.path.join(repo, ".gitignore")) as fh:
+        assert ".jax_cache/" in fh.read().split()
 
 
 def test_initialize_multihost_noop_without_env(monkeypatch):
@@ -117,14 +153,13 @@ def test_fit_unroll_contract():
 
 
 def test_padded_chunks_restores_unroll():
-    """Awkward chunk counts pad up (<=12.5% waste) so the static unroll —
-    and with it the kernel's DMA double-buffer pipeline — survives; past
-    that the natural count keeps its best divisor."""
+    """Awkward chunk counts pad up (<=12.5% waste) so the static unroll
+    survives; past that the natural count keeps its best divisor."""
     from fpcr_tpu.core.cloud import padded_chunks
 
     # the wide-plane smoke scene: 259,200 pts / 512 = 507 chunks (odd) —
-    # fit_unroll gave 1 (serialized DMAs + the v5e VMEM shortfall); now
-    # pads 5 extra chunks to 512 and keeps u=8
+    # fit_unroll gave 1 (one chunk per loop step); now pads 5 extra chunks
+    # to 512 and keeps u=8
     assert padded_chunks(259_200, 512, 8) == (512, 8)
     assert padded_chunks(1_048_576, 512, 8) == (2048, 8)
     assert padded_chunks(16_384, 512, 8) == (32, 8)

@@ -123,50 +123,12 @@ def test_coarse_to_fine_with_morton_default():
     assert float(f.transform_rmse(res.transform, scene.ground_truth, scene.source)) < 5e-4
 
 
-def test_morton_pallas_impl_matches_xla_impl():
-    """morton_impl='pallas' (interpret on CPU) equals morton_impl='xla'."""
-    rng = np.random.default_rng(9)
-    src = jnp.asarray(rng.uniform(-2, 2, (2048, 3)).astype(np.float32))
-    gt = f.gt_transform((0.004, -0.003, 0.002), (0.002, -0.003, 0.002))
-    tgt = gt.apply(src)
-    res_x = f.run_icp(src, tgt, f.ICPConfig(matcher="morton", max_iterations=10,
-                                            morton_impl="xla"))
-    res_p = f.run_icp(src, tgt, f.ICPConfig(matcher="morton", max_iterations=10,
-                                            morton_impl="pallas"))
-    np.testing.assert_allclose(np.asarray(res_x.transform.rotation),
-                               np.asarray(res_p.transform.rotation), atol=1e-6)
-    ni = int(res_x.num_iterations)
-    np.testing.assert_allclose(np.asarray(res_x.errors)[:ni],
-                               np.asarray(res_p.errors)[:int(res_p.num_iterations)],
-                               atol=1e-6)
-
-
-def test_morton_pallas_impl_plane_metric():
-    scene = f.synthetic_scene(width=32)
-    gt = f.gt_transform((0.005, -0.004, 0.003), (0.004, -0.002, 0.003))
-    tgt = gt.apply(scene.source)
-    res = f.run_icp(scene.source, tgt,
-                    f.ICPConfig(metric="plane", matcher="morton",
-                                morton_impl="pallas", max_iterations=20))
-    assert float(f.transform_rmse(res.transform, gt, scene.source)) < 1e-4
-
-
 def test_morton_tiny_cloud_smaller_than_chunk():
     rng = np.random.default_rng(12)
     src = jnp.asarray(rng.uniform(-1, 1, (50, 3)).astype(np.float32))
     gt = f.gt_transform((0.01, -0.01, 0.005), (0.01, -0.005, 0.01))
     res = f.run_icp(src, gt.apply(src),
                     f.ICPConfig(matcher="morton", max_iterations=30))
-    assert float(f.transform_rmse(res.transform, gt, src)) < 1e-3
-
-
-def test_morton_pallas_tiny_cloud():
-    rng = np.random.default_rng(13)
-    src = jnp.asarray(rng.uniform(-1, 1, (50, 3)).astype(np.float32))
-    gt = f.gt_transform((0.01, -0.01, 0.005), (0.01, -0.005, 0.01))
-    res = f.run_icp(src, gt.apply(src),
-                    f.ICPConfig(matcher="morton", morton_impl="pallas",
-                                max_iterations=30))
     assert float(f.transform_rmse(res.transform, gt, src)) < 1e-3
 
 
@@ -311,106 +273,6 @@ def test_normals_banded_threshold_exposed():
     assert f.ICPConfig(normals_banded_threshold=50_000).normals_banded_threshold == 50_000
 
 
-def test_morton_pallas_packed6_matches_highest():
-    """packed6 band kernel (K-packed bf16x6, one MXU pass) agrees with the
-    bit-exact f32 kernel: identical argmins, bit-identical extracted
-    coordinates/extra (one-hot slab sums are exact selections), distances
-    within f32-grade tolerance.  Cites morton_pallas.py mode='packed6'."""
-    from fpcr_tpu.ops.morton_pallas import morton_nn_pallas
-
-    rng = np.random.default_rng(21)
-    q = rng.uniform(-2, 2, (4096, 3)).astype(np.float32)
-    p = (q + rng.normal(scale=0.002, size=q.shape)).astype(np.float32)
-    table = build_morton_table(jnp.asarray(q))
-    order = source_morton_order(jnp.asarray(p), table)
-    ps = jnp.take(jnp.asarray(p), order, axis=0)
-    extra = table.points_sorted * 0.5  # stand-in for sorted normals
-
-    mh, dh, ih, eh = morton_nn_pallas(ps, table, extra=extra, mode="highest")
-    mp, dp, ip, ep = morton_nn_pallas(ps, table, extra=extra, mode="packed6")
-    assert float((np.asarray(ih) == np.asarray(ip)).mean()) == 1.0
-    np.testing.assert_array_equal(np.asarray(mh), np.asarray(mp))
-    np.testing.assert_array_equal(np.asarray(eh), np.asarray(ep))
-    np.testing.assert_allclose(np.asarray(dh), np.asarray(dp),
-                               atol=2e-5, rtol=1e-4)
-
-
-def test_morton_pallas_packed6_idx_matches_packed6():
-    """packed6_idx band kernel (round-5 packed (value|index) single-pass
-    reduction) agrees with packed6: selections may swap only genuine
-    near-ties (identical distances within the 2^-(23-log2(band)) relative
-    quantization bound), extracted coordinates match the selected rows,
-    and returned distances are EXACT (recomputed outside the kernel).
-    Cites morton_pallas.py mode='packed6_idx'."""
-    from fpcr_tpu.ops.morton_pallas import morton_nn_pallas
-
-    rng = np.random.default_rng(23)
-    q = rng.uniform(-2, 2, (4096, 3)).astype(np.float32)
-    p = (q + rng.normal(scale=0.002, size=q.shape)).astype(np.float32)
-    table = build_morton_table(jnp.asarray(q))
-    order = source_morton_order(jnp.asarray(p), table)
-    ps = jnp.take(jnp.asarray(p), order, axis=0)
-    extra = table.points_sorted * 0.5
-
-    mp, dp, ip, ep = morton_nn_pallas(ps, table, extra=extra, mode="packed6")
-    mi, di, ii, ei = morton_nn_pallas(ps, table, extra=extra,
-                                      mode="packed6_idx")
-    same = np.asarray(ip) == np.asarray(ii)
-    # swapped rows are near-ties: distances agree within the relative
-    # quantization bound (band=768 -> 10 idx bits -> ~2^-13 ≈ 1.3e-4)
-    np.testing.assert_allclose(np.asarray(di), np.asarray(dp),
-                               rtol=3e-4, atol=2e-5)
-    assert float(same.mean()) > 0.99
-    # extracted coords are consistent with the packed6_idx selection:
-    # exact recomputed distance equals |p - matched|^2 by construction,
-    # and matches the table row the index points at
-    sel = np.asarray(table.points_sorted)[np.clip(np.asarray(ii), 0,
-                                                  q.shape[0] - 1)]
-    np.testing.assert_allclose(np.asarray(mi), sel, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(ei), sel * 0.5, atol=1e-6)
-
-
-def test_morton_pallas_packed6_pipe_bit_identical():
-    """The software-pipelined schedule (the packed6 default since the
-    round-5 hardware A/B) performs IDENTICAL math to the original
-    double-buffered schedule (mode='packed6_seq') — outputs must be
-    bit-identical, including the unroll pipeline edges (first/last chunk
-    of each grid step). Cites morton_pallas.py mode='packed6'."""
-    from fpcr_tpu.ops.morton_pallas import morton_nn_pallas
-
-    rng = np.random.default_rng(29)
-    q = rng.uniform(-2, 2, (4096, 3)).astype(np.float32)
-    p = (q + rng.normal(scale=0.002, size=q.shape)).astype(np.float32)
-    table = build_morton_table(jnp.asarray(q))
-    order = source_morton_order(jnp.asarray(p), table)
-    ps = jnp.take(jnp.asarray(p), order, axis=0)
-    extra = table.points_sorted * 0.5
-
-    for unroll in (1, 2, 8):
-        m6, d6, i6, e6 = morton_nn_pallas(ps, table, extra=extra,
-                                          mode="packed6_seq", unroll=unroll)
-        mp, dp, ip, ep = morton_nn_pallas(ps, table, extra=extra,
-                                          mode="packed6",
-                                          unroll=unroll)
-        np.testing.assert_array_equal(np.asarray(i6), np.asarray(ip))
-        np.testing.assert_array_equal(np.asarray(d6), np.asarray(dp))
-        np.testing.assert_array_equal(np.asarray(m6), np.asarray(mp))
-        np.testing.assert_array_equal(np.asarray(e6), np.asarray(ep))
-
-
-def test_morton_pallas_mode_validated():
-    from fpcr_tpu.ops.morton_pallas import morton_nn_pallas
-
-    rng = np.random.default_rng(22)
-    q = rng.uniform(-1, 1, (256, 3)).astype(np.float32)
-    table = build_morton_table(jnp.asarray(q))
-    with pytest.raises(ValueError, match="unknown mode"):
-        morton_nn_pallas(table.points_sorted, table, mode="bogus")
-    import fpcr_tpu as f
-    with pytest.raises(ValueError, match="unknown pallas_mode"):
-        f.ICPConfig(pallas_mode="bogus")
-
-
 def test_tune_morton_adversarial_walls_under_2pct():
     """Probe-driven Morton quality (VERDICT r2 #5): on the adversarial
     crossing-walls cloud — whose intersection sits on the curve's top-bit
@@ -504,8 +366,7 @@ def test_tune_morton_far_from_origin_scale_aware():
     assert cfg.morton_rescue == 0 and cfg.morton_shifts == cfg0.morton_shifts, cfg
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_morton_probe_never_reads_padding(impl):
+def test_morton_probe_never_reads_padding():
     """n % chunk in [1, chunk//2] puts the fixed probe row of the final
     chunk INSIDE the padding; zero-padding would quantize the probe to the
     origin cell and center the band at an arbitrary rank, mismatching the
@@ -520,14 +381,8 @@ def test_morton_probe_never_reads_padding(impl):
     order = source_morton_order(jnp.asarray(p), table)
     p_sorted = jnp.take(jnp.asarray(p), order, axis=0)
 
-    if impl == "xla":
-        _, dmin, idx_sorted, _ = morton_nn(p_sorted, table,
-                                           chunk=256, window=256)
-    else:
-        from fpcr_tpu.ops.morton_pallas import morton_nn_pallas
-
-        _, dmin, idx_sorted, _ = morton_nn_pallas(
-            p_sorted, table, chunk=256, window=256, interpret=True)
+    _, dmin, idx_sorted, _ = morton_nn(p_sorted, table,
+                                       chunk=256, window=256)
     ref_idx, _ = np_nn(np.asarray(p_sorted), q)
     got_idx = np.asarray(table.orig_index)[np.asarray(idx_sorted)]
     # the tail rows (the final chunk) must agree with brute force like the
@@ -564,3 +419,65 @@ def test_band_quality_probe_ranks_geometries():
         assert rec["mean_excess_rel"] >= 0.0
     assert tiny["miss_rate"] >= narrow["miss_rate"] >= full["miss_rate"]
     assert narrow["band_ratio"] == (256 + 2 * 64 + 128) / 256
+
+
+def _sheets(rng, n):
+    """Parallel planar sheets (walls of a corridor): the plane-dominant
+    geometry of indoor scans. Crossing walls are the adversarial case
+    ``tune_morton`` covers (see the tests above)."""
+    per = n // 4
+    walls = [np.c_[np.full(per, 0.5 * k), rng.uniform(-2, 2, (per, 2))]
+             for k in range(4)]
+    return np.concatenate(walls)
+
+
+_BAND_GEOMETRIES = {
+    "uniform": lambda rng, n: rng.uniform(-2, 2, (n, 3)),
+    "surface": lambda rng, n: np.asarray(f.synthetic_scene(width=64).source),
+    "far_from_origin": lambda rng, n: rng.uniform(-1, 1, (n, 3))
+    + np.array([500.0, -300.0, 400.0]),
+    "sheets": _sheets,
+    "ragged_n": lambda rng, n: rng.uniform(0, 2, (n + 77, 3)),
+}
+
+
+@pytest.mark.parametrize("geometry", sorted(_BAND_GEOMETRIES))
+def test_morton_band_matches_brute(geometry):
+    """The XLA band matcher against the exact brute matcher on
+    near-registered clouds of several geometries: nearly every row finds
+    the true nearest neighbour, and a band miss only ever returns a farther
+    point (never a distance below the true minimum)."""
+    rng = np.random.default_rng(61)
+    q = _BAND_GEOMETRIES[geometry](rng, 4096).astype(np.float32)
+    p = (q + rng.normal(scale=0.002, size=q.shape)).astype(np.float32)
+    table = build_morton_table(jnp.asarray(q))
+    p_sorted = jnp.take(jnp.asarray(p),
+                        source_morton_order(jnp.asarray(p), table), axis=0)
+    _, d_band, idx_sorted, _ = morton_nn(p_sorted, table)
+    from fpcr_tpu.ops.matching import nn_argmin
+
+    idx_ref, d_ref = nn_argmin(p_sorted, jnp.asarray(q), exact=True)
+    got = np.asarray(table.orig_index)[np.asarray(idx_sorted)]
+    d_band, d_ref = np.asarray(d_band), np.asarray(d_ref)
+    scale = float(np.mean(np.sum(q.astype(np.float64) ** 2, axis=1)))
+    noise = 1e-6 * max(scale, 1.0)  # expansion-form f32 rounding
+    assert (d_band >= d_ref - noise).all()
+    agree = (got == np.asarray(idx_ref)) | (d_band <= d_ref + noise)
+    assert agree.mean() > 0.98, (geometry, agree.mean())
+
+
+@pytest.mark.parametrize("metric", ["point", "plane"])
+def test_morton_icp_matches_brute_icp(metric):
+    """Near-registered, the band matcher and the exact brute matcher give
+    the same registration."""
+    scene = f.synthetic_scene(width=48)
+    gt = f.gt_transform((0.004, -0.002, 0.003), (0.002, -0.003, 0.002))
+    tgt = gt.apply(scene.source)
+    out = {m: f.run_icp(scene.source, tgt,
+                        f.ICPConfig(metric=metric, matcher=m,
+                                    max_iterations=30))
+           for m in ("xla", "morton")}
+    for res in out.values():
+        assert float(f.transform_rmse(res.transform, gt, scene.source)) < 1e-5
+    assert float(f.transform_rmse(out["morton"].transform,
+                                  out["xla"].transform, scene.source)) < 1e-5

@@ -301,285 +301,93 @@ def test_run_ndt_banded_registers():
         np.asarray(res_b.transform.apply(scene.source)), atol=1e-6)
 
 
-# the per-offset numpy oracle is shared with scripts/tpu_smoke.py
-from fpcr_tpu.ops.ndt import reference_neighborhood_moments as _reference_moments
-
-
-def test_fused_moments_match_gather_path():
-    """The fused direct7 kernel (interpret mode) reproduces the explicit
-    7-offset gather moments: WS, Σ w S r (via WS·x′ − WSμ′), neighbor
-    count and Σq agree to f32-grade tolerance."""
-    from fpcr_tpu.ops.ndt import cell_key_order, gauss_d1_d2
-    from fpcr_tpu.ops.ndt_pallas import (ndt_fused_moments,
-                                         prepare_fused_tables)
-
-    rng = np.random.default_rng(23)
-    pts = rng.uniform(0, 2.0, (6000, 3)).astype(np.float32)
-    grid = build_ndt_grid(jnp.asarray(pts), 0.25)
-    src = jnp.asarray(pts + rng.normal(0, 0.02, pts.shape).astype(np.float32))
-    src = jnp.take(src, cell_key_order(src, grid), axis=0)
-    d1f, d2f = gauss_d1_d2(0.55, 0.25)
-    d1f = abs(d1f)
-    offsets = [None, (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0),
-               (0, 0, 1), (0, 0, -1)]
-    WS, WSr, count, qsum = _reference_moments(src, grid, d1f, d2f, offsets)
-
-    tables = prepare_fused_tables(grid)
-    rows, xp = ndt_fused_moments(
-        src, grid, tables, voxel_size=0.25, d1=d1f, d2=d2f,
-        chunk=256, window=256)
-    rows, xp = np.asarray(rows), np.asarray(xp)
-
-    # the band covers the full neighborhood on this cloud: counts match
-    np.testing.assert_array_equal(rows[:, 10], count)
-    # atol covers the split-pair truncation floor; rtol covers exp-
-    # amplified q error on large-|S| (eig-clamped) rows: the weight's
-    # relative error is ~d2/2 × 2⁻²⁴ × the bilinear expansion scale
-    scale = np.abs(WS).max()
-    np.testing.assert_allclose(rows[:, 0:6], WS, rtol=2e-3,
-                               atol=2e-4 * scale)
-    sr_fused = np.stack([
-        rows[:, 0] * xp[:, 0] + rows[:, 1] * xp[:, 1]
-        + rows[:, 2] * xp[:, 2] - rows[:, 6],
-        rows[:, 1] * xp[:, 0] + rows[:, 3] * xp[:, 1]
-        + rows[:, 4] * xp[:, 2] - rows[:, 7],
-        rows[:, 2] * xp[:, 0] + rows[:, 4] * xp[:, 1]
-        + rows[:, 5] * xp[:, 2] - rows[:, 8],
-    ], axis=1)
-    np.testing.assert_allclose(sr_fused, WSr,
-                               atol=2e-3 * max(np.abs(WSr).max(), 1.0))
-    np.testing.assert_allclose(qsum, rows[:, 11],
-                               atol=1e-3 * max(qsum.max(), 1.0))
-
-
-def test_fused_mask_modes_bit_identical():
-    """mask='vpu' (per-axis Σ|Δc| ≤ 1 on the VPU) and mask='matmul'
-    (pack6 integer-distance MXU pass, default — it won the round-5
-    hardware A/B, BENCH_NOTES §NDT mask) are both EXACT
-    integer predicates, so the kernels must produce bit-identical rows —
-    including out-of-grid queries (clamped cells face-matching boundary
-    voxels) and masked-out rows (structural misses)."""
-    from fpcr_tpu.ops.ndt import cell_key_order, gauss_d1_d2
-    from fpcr_tpu.ops.ndt_pallas import (ndt_fused_moments,
-                                         prepare_fused_tables)
-
-    rng = np.random.default_rng(31)
-    pts = rng.uniform(0, 2.0, (4096, 3)).astype(np.float32)
-    grid = build_ndt_grid(jnp.asarray(pts), 0.25)
-    src_np = pts + rng.normal(0, 0.02, pts.shape).astype(np.float32)
-    src_np[:64] -= 3.0   # out of the grid entirely (structural misses)
-    src_np[64:128, 0] = -0.1  # one cell below the min face: boundary match
-    src = jnp.asarray(src_np)
-    src = jnp.take(src, cell_key_order(src, grid), axis=0)
-    smask = jnp.arange(src.shape[0]) != 100  # one masked-out row
-    d1f, d2f = gauss_d1_d2(0.55, 0.25)
-    d1f = abs(d1f)
-
-    outs = {}
-    for mode in ("vpu", "matmul"):
-        tables = prepare_fused_tables(grid, mask=mode)
-        assert (tables.cellpk is None) == (mode == "vpu")
-        rows, xp = ndt_fused_moments(
-            src, grid, tables, voxel_size=0.25, d1=d1f, d2=d2f,
-            chunk=256, window=256, source_mask=smask, mask=mode)
-        outs[mode] = (np.asarray(rows), np.asarray(xp))
-    np.testing.assert_array_equal(outs["vpu"][0], outs["matmul"][0])
-    np.testing.assert_array_equal(outs["vpu"][1], outs["matmul"][1])
-    # the scene exercises real hits (not vacuous agreement)
-    assert outs["vpu"][0][:, 10].max() >= 5
-
-
-def test_fused_schedules_bit_identical():
-    """The software-pipelined fused schedules ('pipe'..'pipe3') stage the
-    front half (mask/features/maha) through VMEM rings but compute the
-    SAME per-chunk math as 'seq' — rows must be bit-identical at every
-    depth, including depth > per-group unroll (the ramp-down edge) and
-    the structural-miss/boundary rows of the mask-parity scene."""
-    from fpcr_tpu.ops.ndt import cell_key_order, gauss_d1_d2
-    from fpcr_tpu.ops.ndt_pallas import (ndt_fused_moments,
-                                         prepare_fused_tables)
-
-    rng = np.random.default_rng(32)
-    pts = rng.uniform(0, 2.0, (4096, 3)).astype(np.float32)
-    grid = build_ndt_grid(jnp.asarray(pts), 0.25)
-    src_np = pts + rng.normal(0, 0.02, pts.shape).astype(np.float32)
-    src_np[:64] -= 3.0
-    src_np[64:128, 0] = -0.1
-    src = jnp.asarray(src_np)
-    src = jnp.take(src, cell_key_order(src, grid), axis=0)
-    smask = jnp.arange(src.shape[0]) != 100
-    d1f, d2f = gauss_d1_d2(0.55, 0.25)
-    d1f = abs(d1f)
-    tables = prepare_fused_tables(grid)
-
-    def run(sched, unroll):
-        rows, xp = ndt_fused_moments(
-            src, grid, tables, voxel_size=0.25, d1=d1f, d2=d2f,
-            chunk=256, window=256, unroll=unroll, source_mask=smask,
-            schedule=sched)
-        return np.asarray(rows), np.asarray(xp)
-
-    ref = run("seq", 4)
-    assert ref[0][:, 10].max() >= 5  # real hits, not vacuous agreement
-    for sched in ("pipe", "pipe2", "pipe3", "auto"):
-        for unroll in (1, 2, 4):  # depth ≥ unroll exercises the ramp-down
-            got = run(sched, unroll)
-            np.testing.assert_array_equal(ref[0], got[0])
-            np.testing.assert_array_equal(ref[1], got[1])
-
-
-def test_fused_wsplit1_close():
-    """wsplit=1 sends a single rounded-bf16 weight matmul instead of the
-    exact h+m split — moments must agree to the bf16 rounding scale
-    (~2⁻⁹ relative of the weighted-feature magnitudes), while the
-    count/qsum lanes (pure VPU reductions, no w matmul) stay
-    bit-identical. Pipelined schedules share the same back-half code
-    path and must match their seq counterpart exactly."""
-    from fpcr_tpu.ops.ndt import cell_key_order, gauss_d1_d2
-    from fpcr_tpu.ops.ndt_pallas import (ndt_fused_moments,
-                                         prepare_fused_tables)
-
-    rng = np.random.default_rng(33)
-    pts = rng.uniform(0, 2.0, (4096, 3)).astype(np.float32)
-    grid = build_ndt_grid(jnp.asarray(pts), 0.25)
-    src = jnp.asarray(
-        pts + rng.normal(0, 0.02, pts.shape).astype(np.float32))
-    src = jnp.take(src, cell_key_order(src, grid), axis=0)
-    d1f, d2f = gauss_d1_d2(0.55, 0.25)
-    d1f = abs(d1f)
-    tables = prepare_fused_tables(grid)
-
-    def run(wsplit, sched="seq"):
-        rows, _ = ndt_fused_moments(
-            src, grid, tables, voxel_size=0.25, d1=d1f, d2=d2f,
-            chunk=256, window=256, unroll=2, schedule=sched,
-            wsplit=wsplit)
-        return np.asarray(rows)
-
-    ref, got = run(2), run(1)
-    assert ref[:, 10].max() >= 5
-    # count + qsum lanes bypass the extraction matmul entirely
-    np.testing.assert_array_equal(ref[:, 10:12], got[:, 10:12])
-    # moment lanes: bf16-rounded w → ~2⁻⁹ relative of the row scale
-    scale = np.abs(ref[:, :10]).max(axis=1, keepdims=True) + 1e-30
-    np.testing.assert_allclose(got[:, :10] / scale, ref[:, :10] / scale,
-                               atol=5e-3)
-    assert (ref[:, :10] != got[:, :10]).any()  # a REAL precision change
-    np.testing.assert_array_equal(run(1, "pipe2"), got)
-
-
-def test_run_ndt_fused_registers():
-    """Full NDT loop on the fused Pallas moments (interpret mode)."""
-    scene = f.synthetic_scene(width=48)
-    gt = f.gt_transform((0.02, -0.015, 0.01), (0.03, -0.02, 0.015))
-    tgt = gt.apply(scene.source)
-    res = run_ndt(scene.source, tgt,
-                  NDTConfig(voxel_size=0.4, max_iterations=60,
-                            lookup="banded", lookup_impl="pallas",
-                            lookup_chunk=256, lookup_window=256))
-    assert bool(res.converged)
-    assert float(f.transform_rmse(res.transform, gt, scene.source)) < 5e-3
-
-
-def test_fused_window_escalation_covers_wide_xplanes():
-    """The fused band kernel's coverage policy: on a grid whose x-planes
-    exceed the configured window, `_resolve_fused` escalates the window
-    so x±1 face neighbors stay inside the band; without escalation those
-    neighbors silently read as misses (the adversarial case the policy
-    exists for)."""
-    from fpcr_tpu.models.ndt import _resolve_fused
-    from fpcr_tpu.ops.ndt import cell_key_order
-    from fpcr_tpu.ops.ndt_pallas import (ndt_fused_moments,
-                                         prepare_fused_tables)
-
-    # plane-dominant cloud: dense (y, z) sheets at a few x stations →
-    # each x-plane of the voxel table has ~20x20 = 400 rows
-    rng = np.random.default_rng(7)
+def _sheets_cloud(rng):
+    """Plane-dominant cloud: dense (y, z) sheets at six x stations, so each
+    x-plane of the voxel table holds hundreds of rows."""
     ys, zs = np.meshgrid(np.linspace(0, 5.0, 40, dtype=np.float32),
                          np.linspace(0, 5.0, 40, dtype=np.float32),
                          indexing="ij")
-    sheets = []
-    for xi in range(6):
-        sheet = np.stack([np.full(ys.size, 0.25 * xi, np.float32),
-                          ys.ravel(), zs.ravel()], 1)
-        sheets.append(sheet + rng.normal(0, 0.01, sheet.shape
-                                         ).astype(np.float32))
-    pts = np.concatenate(sheets)  # 9600 points, 6 dense x-planes
-    for _ in range(2):  # >= min_points per voxel
-        pts = np.concatenate(
-            [pts, pts + rng.normal(0, 0.01, pts.shape).astype(np.float32)])
+    sheets = [np.stack([np.full(ys.size, 0.25 * xi, np.float32),
+                        ys.ravel(), zs.ravel()], 1) for xi in range(6)]
+    pts = np.concatenate(sheets)
+    return pts + rng.normal(0, 0.01, pts.shape).astype(np.float32)
+
+
+_GEOMETRIES = {
+    "uniform_cube": lambda rng: rng.uniform(0, 2.0, (4000, 3)),
+    "far_from_origin": lambda rng: rng.uniform(0, 2.0, (4000, 3))
+    + np.array([300.0, -200.0, 150.0]),
+    "surface": lambda rng: np.asarray(f.synthetic_scene(width=64).source),
+    "sheets": _sheets_cloud,
+}
+
+
+@pytest.mark.parametrize("geometry", sorted(_GEOMETRIES))
+def test_banded_lookup_matches_gather_geometries(geometry):
+    """On voxel-key-sorted queries the band lookup returns the gather
+    lookup's rows exactly, and misses only where the band cannot reach
+    (never a fabricated hit), across geometries with small and large
+    x-planes."""
+    from fpcr_tpu.ops.ndt import cell_key_order, ndt_lookup_banded
+
+    rng = np.random.default_rng(41)
+    pts = _GEOMETRIES[geometry](rng).astype(np.float32)
     grid = build_ndt_grid(jnp.asarray(pts), 0.25)
-    src = jnp.asarray(pts[: 4096] + 0.02)
+    src = jnp.asarray(pts + rng.normal(0, 0.02, pts.shape).astype(np.float32))
     src = jnp.take(src, cell_key_order(src, grid), axis=0)
-
-    cfg = NDTConfig(voxel_size=0.25, lookup="banded", lookup_impl="pallas",
-                    lookup_chunk=256, lookup_window=256)
-    cfg2 = _resolve_fused(cfg, grid, src)
-    assert cfg2.lookup_impl == "pallas"
-    assert cfg2.lookup_window > cfg.lookup_window  # escalated
-
-    d1f, d2f = gauss_d1_d2(0.55, 0.25)
-    d1f = abs(d1f)
-    offsets = [None, (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0),
-               (0, 0, 1), (0, 0, -1)]
-    _, _, count_ref, _ = _reference_moments(src, grid, d1f, d2f, offsets)
-
-    tables = prepare_fused_tables(grid)
-    rows_esc, _ = ndt_fused_moments(
-        src, grid, tables, voxel_size=0.25, d1=d1f, d2=d2f,
-        chunk=cfg2.lookup_chunk, window=cfg2.lookup_window)
-    np.testing.assert_array_equal(
-        np.asarray(rows_esc)[:, 10], count_ref)
-
-    # prove the test is adversarial: the UN-escalated window misses
-    rows_256, _ = ndt_fused_moments(
-        src, grid, tables, voxel_size=0.25, d1=d1f, d2=d2f,
-        chunk=256, window=256)
-    assert (np.asarray(rows_256)[:, 10] < count_ref).any()
+    for off in (None, (1, 0, 0), (0, 0, -1)):
+        o = None if off is None else jnp.asarray(off, jnp.int32)
+        mu_g, si_g, hit_g = ndt_lookup(src, grid, cell_offset=o)
+        mu_b, si_b, hit_b = ndt_lookup_banded(src, grid, cell_offset=o,
+                                              chunk=256, window=512)
+        hg, hb = np.asarray(hit_g), np.asarray(hit_b)
+        assert hg.any(), (geometry, off)
+        assert not (hb & ~hg).any(), (geometry, off)
+        assert (hb == hg).mean() > 0.99, (geometry, off)
+        both = hb & hg
+        np.testing.assert_array_equal(np.asarray(mu_b)[both],
+                                      np.asarray(mu_g)[both])
+        np.testing.assert_array_equal(np.asarray(si_b)[both],
+                                      np.asarray(si_g)[both])
 
 
-def test_fused_window_cap_falls_back_to_xla():
-    """Past `_FUSED_WINDOW_CAP` the auto policy must pick the per-offset
-    XLA banded path instead of a fused band that cannot cover x±1."""
-    from fpcr_tpu.models.ndt import (_FUSED_WINDOW_CAP, _resolve_fused,
-                                     NDTConfig)
-    from fpcr_tpu.ops.ndt import NDTGrid
-
-    m = 2 * (_FUSED_WINDOW_CAP + 1024)  # two x-planes, each > the cap
-    cx = np.repeat(np.array([3, 4], np.int64), m // 2)
-    cy = np.tile(np.arange(m // 2, dtype=np.int64) // 64, 2)
-    cz = np.tile(np.arange(m // 2, dtype=np.int64) % 64, 2)
-    keys = jnp.asarray(np.sort((cx << 20) | (cy << 10) | cz),
-                       jnp.int32)
-    grid = NDTGrid(keys=keys, mu=jnp.zeros((m, 3)),
-                   sinv=jnp.zeros((m, 3, 3)),
-                   valid=jnp.ones((m,), bool),
-                   lo=jnp.zeros((3,)), voxel_size=jnp.float32(0.25),
-                   table=jnp.zeros((m, 16)))
-    cfg = NDTConfig(voxel_size=0.25, lookup="banded", lookup_impl="auto")
-    assert _resolve_fused(cfg, grid).lookup_impl == "xla"
+@pytest.mark.parametrize("method", ["scan", "sort"])
+def test_gather_lookup_search_methods_agree(method):
+    """Both searchsorted algorithms give the same voxel rows (the GPU's
+    choice between them is a speed question only)."""
+    rng = np.random.default_rng(42)
+    pts = rng.uniform(0, 2.0, (3000, 3)).astype(np.float32)
+    grid = build_ndt_grid(jnp.asarray(pts), 0.25)
+    q = jnp.asarray(rng.uniform(-0.3, 2.3, (2000, 3)).astype(np.float32))
+    for off in (None, jnp.asarray((0, 1, 0), jnp.int32)):
+        ref = ndt_lookup(q, grid, cell_offset=off, method="compare_all")
+        got = ndt_lookup(q, grid, cell_offset=off, method=method)
+        for a, b in zip(ref, got):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_fused_window_auto_shrinks_on_narrow_geometry():
-    """`lookup_window=None` sizes the band DOWN to the computed coverage
-    requirement (floor 256) on surface-like geometry whose x-planes are
-    small — less kernel work at identical coverage; an explicit window
-    is left alone."""
-    from fpcr_tpu.models.ndt import _resolve_fused
-    from fpcr_tpu.ops.ndt import cell_key_order
-
-    scene = f.synthetic_scene(width=96)
-    grid = build_ndt_grid(scene.target, 0.4)  # coarse voxels: small x-planes
-    src = jnp.take(scene.source,
-                   cell_key_order(scene.source, grid), axis=0)
-    cfg = NDTConfig(voxel_size=0.4, lookup="banded",
-                    lookup_impl="pallas", lookup_chunk=256)
-    auto = _resolve_fused(cfg, grid, src)
-    assert auto.lookup_impl == "pallas"
-    assert 256 <= auto.lookup_window < 512  # shrunk below the old fixed 512
-    explicit = _resolve_fused(
-        dataclasses.replace(cfg, lookup_window=512), grid, src)
-    assert explicit.lookup_window == 512  # explicit value respected
+@pytest.mark.parametrize("width,voxel", [(40, 0.4), (56, 0.3)])
+def test_run_ndt_banded_equals_gather(width, voxel):
+    """The banded and gather lookups drive the full NDT loop to the same
+    pose on near-registered surface scans."""
+    scene = f.synthetic_scene(width=width)
+    gt = f.gt_transform((0.01, -0.008, 0.006), (0.02, -0.015, 0.01))
+    tgt = gt.apply(scene.source)
+    out = {}
+    for lookup in ("gather", "banded"):
+        out[lookup] = run_ndt(scene.source, tgt,
+                              NDTConfig(voxel_size=voxel, max_iterations=40,
+                                        lookup=lookup, lookup_chunk=256,
+                                        lookup_window=256))
+    for res in out.values():
+        assert float(f.transform_rmse(res.transform, gt,
+                                      scene.source)) < 5e-3
+    np.testing.assert_allclose(
+        np.asarray(out["banded"].transform.rotation),
+        np.asarray(out["gather"].transform.rotation), atol=1e-4)
+    np.testing.assert_allclose(
+        np.asarray(out["banded"].transform.translation),
+        np.asarray(out["gather"].transform.translation), atol=1e-4)
 
 
 def test_config_rejects_bad_lookup_geometry():
@@ -587,10 +395,8 @@ def test_config_rejects_bad_lookup_geometry():
         NDTConfig(voxel_size=0.2, lookup_chunk=0)
     with pytest.raises(ValueError):
         NDTConfig(voxel_size=0.2, lookup_window=-1)
-    # the fused kernel's block lane dimension needs 128-aligned chunks;
-    # reject early with a clear message, not deep inside Mosaic
-    with pytest.raises(ValueError, match="multiple of 128"):
-        NDTConfig(voxel_size=0.2, lookup_chunk=100)
+    # any positive chunk is a valid band height for the XLA band path
+    assert NDTConfig(voxel_size=0.2, lookup_chunk=100).lookup_chunk == 100
 
 
 def test_run_ndt_composes_under_outer_jit_with_prebuilt_grid():
@@ -627,15 +433,16 @@ def test_run_ndt_composes_under_outer_jit_with_prebuilt_grid():
 
 
 def test_resolve_ndt_config_streaming_fast_path():
-    """resolve_ndt_config pins every auto policy once; run_ndt then skips
-    the per-call host probe and produces the same registration."""
+    """resolve_ndt_config pins lookup='auto' once for a representative
+    scan; run_ndt with the pinned config produces the same registration."""
     scene = f.synthetic_scene(width=48)
     grid = build_ndt_grid(scene.source, 0.3)
-    base = NDTConfig(voxel_size=0.3, max_iterations=25, lookup="banded")
+    base = NDTConfig(voxel_size=0.3, max_iterations=25)
     resolved = f.resolve_ndt_config(base, grid, scene.source)
-    assert resolved.lookup_resolved
-    assert resolved.lookup_impl in ("xla", "pallas")
-    assert resolved.lookup_window is not None
+    assert resolved.lookup == "gather"  # 2,304 points < lookup_threshold
+    big = f.resolve_ndt_config(
+        dataclasses.replace(base, lookup_threshold=1000), grid, scene.source)
+    assert big.lookup == "banded"
 
     gt = f.gt_transform((0.02, -0.01, 0.015), (0.01, -0.02, 0.01))
     scan = gt.apply(scene.source)
@@ -646,7 +453,3 @@ def test_resolve_ndt_config_streaming_fast_path():
                                atol=1e-6)
     err = float(f.transform_rmse(res_resolved.transform, gt.inverse(), scan))
     assert err < 5e-3, err
-
-    with pytest.raises(ValueError, match="resolve_ndt_config"):
-        run_ndt(scan, scene.source,
-                dataclasses.replace(base, lookup_resolved=True), grid=grid)

@@ -78,20 +78,24 @@ def test_distributed_morton_matcher(mesh8):
     assert float(f.transform_rmse(dist.transform, gt, src)) < 1e-4
 
 
-def test_distributed_morton_pallas_kernel(mesh8):
-    """The production 1M multi-chip configuration is morton_impl='pallas'
-    inside shard_map; run exactly that path here (Pallas interpret mode on
-    the CPU mesh) and require GT recovery, not just compilation."""
+@pytest.mark.parametrize("metric", ["point", "plane", "gicp"])
+def test_distributed_morton_metrics_match_single_device(mesh8, metric):
+    """The large-N path of every ICP metric under shard_map (XLA band
+    matcher, per-shard source sort, psum'd moments) reproduces the
+    single-device registration."""
     import jax.numpy as jnp
 
-    rng = np.random.default_rng(13)
-    src = jnp.asarray(rng.uniform(-2, 2, (2048, 3)).astype(np.float32))
+    src = f.synthetic_scene(width=48).source
     gt = f.gt_transform((0.004, -0.003, 0.002), (0.002, -0.003, 0.002))
     tgt = gt.apply(src)
-    cfg = f.ICPConfig(matcher="morton", morton_impl="pallas",
-                      max_iterations=10, morton_chunk=128, morton_window=128)
+    cfg = f.ICPConfig(metric=metric, matcher="morton", max_iterations=20)
+    single = f.run_icp(src, tgt, cfg)
     dist = distributed_icp(src, tgt, cfg, mesh=mesh8)
+    assert float(f.transform_rmse(dist.transform, single.transform,
+                                  src)) < 1e-5
     assert float(f.transform_rmse(dist.transform, gt, src)) < 1e-4
+    assert dist.points.shape == src.shape
+    assert isinstance(dist.points, jnp.ndarray)
 
 
 def test_distributed_observability_replicated(mesh8):
@@ -159,29 +163,22 @@ def test_distributed_ndt_banded_lookup(mesh8):
         np.asarray(dist.transform.apply(scene.source)), atol=1e-5)
 
 
-def test_distributed_ndt_fused_pallas(mesh8):
-    """The fused Pallas moments kernel under shard_map (interpret mode on
-    the CPU mesh): each shard band-reads its local coherent block against
-    the replicated tables; the H/g psums must reproduce the single-device
-    fused run and recover GT."""
-    from fpcr_tpu.models.ndt import NDTConfig, run_ndt
+@pytest.mark.parametrize("lookup", ["gather", "banded"])
+def test_distributed_ndt_spreads_over_mesh(mesh8, lookup):
+    """Both NDT lookups under shard_map: the sharded output lives on every
+    device of the mesh (nothing lands on device 0 only) and recovers the
+    pose."""
+    from fpcr_tpu.models.ndt import NDTConfig
     from fpcr_tpu.parallel.dist_icp import distributed_ndt
 
-    scene = f.synthetic_scene(width=48)
+    scene = f.synthetic_scene(width=40)
     gt = f.gt_transform((0.02, -0.015, 0.01), (0.03, -0.02, 0.015))
-    tgt = gt.apply(scene.source)
-    cfg = NDTConfig(voxel_size=0.4, max_iterations=50, lookup="banded",
-                    lookup_impl="pallas", lookup_chunk=256,
-                    lookup_window=256)
-    single = run_ndt(scene.source, tgt, cfg)
-    dist = distributed_ndt(scene.source, tgt, cfg, mesh=mesh8)
-    np.testing.assert_allclose(np.asarray(dist.transform.rotation),
-                               np.asarray(single.transform.rotation),
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(dist.transform.translation),
-                               np.asarray(single.transform.translation),
-                               atol=1e-5)
+    cfg = NDTConfig(voxel_size=0.4, max_iterations=40, lookup=lookup,
+                    lookup_chunk=128, lookup_window=256)
+    dist = distributed_ndt(scene.source, gt.apply(scene.source), cfg,
+                           mesh=mesh8)
     assert float(f.transform_rmse(dist.transform, gt, scene.source)) < 5e-3
+    assert len(dist.transform.rotation.sharding.device_set) == 8
 
 
 @pytest.mark.slow

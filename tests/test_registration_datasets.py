@@ -103,8 +103,7 @@ def test_full_bunny_morton_coarse_to_fine():
     res = icp_coarse_to_fine(
         scene.source, scene.target,
         coarse_config=f.ICPConfig(max_iterations=40),
-        fine_config=f.ICPConfig(matcher="morton", morton_impl="xla",
-                                max_iterations=20),
+        fine_config=f.ICPConfig(matcher="morton", max_iterations=20),
         coarse_points=2048,
     )
     rmse = float(f.transform_rmse(res.transform, scene.ground_truth,

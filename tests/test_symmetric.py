@@ -49,7 +49,6 @@ def test_symmetric_morton_matcher():
     tgt = gt.apply(src)
     res = f.run_icp(src, tgt, f.ICPConfig(metric="symmetric",
                                           matcher="morton",
-                                          morton_impl="xla",
                                           max_iterations=20))
     assert float(f.transform_rmse(res.transform, gt, src)) < 1e-4
 
